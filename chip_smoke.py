@@ -4,13 +4,27 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build both CUDA kernels from minddiffusion_tpu_torch/ops/csrc;
-  2. packed-attention kernel vs its plain version at the main-path shapes;
-  3. Winograd conv kernel vs its plain version at main-path shapes;
+  1. build the three CUDA kernels from minddiffusion_tpu_torch/ops/csrc, one
+     nvcc each, all at once;
+  2. packed-attention kernel (K1) vs its plain version at the main-path
+     shapes, beside F.scaled_dot_product_attention on the same tensors;
+  3. Winograd conv kernel (K2) vs its plain version at main-path shapes,
+     beside cuDNN's F.conv2d;
   4. one full-width SD2 UNet eval, kernel path vs plain path;
   5. the main path: SD2 txt2img 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
-     seeded random weights, with kernel launch counts.
-The line before the last is the kernel table as JSON; the last line is the
+     seeded random weights, with kernel launch counts;
+  6. head-split attention kernel (K4) vs its plain version at the 768x1024
+     and 768^2 sites, a ragged, a static-shift and a logit > 88 case,
+     beside F.scaled_dot_product_attention;
+  7. txt2img 768x1024, DDIM-50, CFG 9.0, batch 4: rerun bytes, s/batch,
+     launch counts;
+  8. img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4, launch counts;
+  9. txt2img 512^2 with the DPM-Solver++ (2M) sampler, 20 steps, batch 8,
+     launch counts.
+The library calls are timing yardsticks only; the port never calls them.
+Each path runs with the launch counters set to 0 just before it and read
+just after, held against counts derived by hand from the SD2 config. The
+line before the last is the kernel table as JSON; the last line is the
 device record. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -20,11 +34,17 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
+KERNELS = ("packed_attention", "winograd", "flash_attention")
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -51,6 +71,40 @@ def errors(got: torch.Tensor, ref: torch.Tensor) -> "tuple[float, float]":
     """(max abs error, max abs error relative to max |ref|)."""
     abs_err = (got.float() - ref.float()).abs().max().item()
     return abs_err, abs_err / ref.float().abs().max().item()
+
+
+def bound(flops: float, nbytes: float) -> "tuple[float, str]":
+    """(least ms the card could take, what bounds it): the larger of the
+    bf16 tensor-core time of the products and the HBM time of reading each
+    input once and writing each output once."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_bound(b: int, heads: int, nq: int, nk: int, d: int):
+    """QK^T and PV products; q, k, v read and out written in bf16."""
+    return bound(4.0 * b * heads * nq * nk * d, 2.0 * b * heads * d * (2 * nq + 2 * nk))
+
+
+def sdpa_ms(q, k, v, scale: float) -> "tuple[float, str]":
+    """F.scaled_dot_product_attention on (B, H, N, D) views of the kernel's
+    inputs: the ms of PyTorch's default choice and the backend it took (the
+    first that runs, in the dispatcher's order)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why each refused backend was refused
+                F.scaled_dot_product_attention(q, k, v, scale=scale)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                           runs=5), name.lower()
+    raise RuntimeError("no SDPA backend ran")
 
 
 def run(cmd) -> str:
@@ -80,14 +134,15 @@ def phase1() -> None:
     from minddiffusion_tpu_torch.ops import _build
 
     t0 = time.time()
-    for name in ("packed_attention", "winograd"):
-        _build.build(name)
-    log(f"[phase 1] built packed_attention, winograd in {time.time() - t0:.2f} s")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    log(f"[phase 1] built {', '.join(KERNELS)} in {time.time() - t0:.2f} s")
 
 
 ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
     ("unet_64x64_self", 16, 4096, 320, 5, False, 1.0),
     ("unet_32x32_self", 16, 1024, 640, 10, False, 1.0),
+    ("unet_ds1_768x768", 8, 9216, 320, 5, False, 1.0),
     ("vae_mid_attn", 8, 4096, 512, 1, True, 1.0),
     ("exact_logits_gt_88", 2, 1024, 320, 5, True, 40.0),
 ]
@@ -116,14 +171,20 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         ms = cuda_ms(lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
         plain_ms = cuda_ms(lambda: fa.packed_attention_plain(q, k, v, heads, scale, exact),
                            runs=5)
+        d = c // heads
+        heads_view = [t.view(b, n, heads, d).transpose(1, 2) for t in (q, k, v)]
+        library_ms, backend = sdpa_ms(*heads_view, scale)
+        bound_ms, bound_by = attention_bound(b, heads, n, n, d)
         log(f"[phase 2] attn {label} B={b} N={n} C={c} heads={heads} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}"
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})"
             + (f" max_logit={max_logit:.1f}" if max_logit else ""))
         assert err <= REL_TOL, (label, err)
         table["packed_attention"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
-                 plain_ms=plain_ms))
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by))
 
 
 WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
@@ -131,6 +192,10 @@ WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
     ("16x16_2560_gn", 16, 16, 16, 2560, 1280, True),
     ("32x32_1280_plain", 16, 32, 32, 1280, 1280, False),
 ]
+# The case the JSON line reports per kernel: K2's is the one without the
+# GN+SiLU prologue, where one cuDNN call computes the same function.
+MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plain",
+             "flash_attention": "unet_ds1_768x1024"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -152,12 +217,24 @@ def phase3(gen: torch.Generator, table: dict) -> None:
         assert torch.isfinite(got.float()).all(), label
         ms = cuda_ms(lambda: wg.conv3x3_winograd(x, u, bias, mult, add))
         plain_ms = cuda_ms(lambda: wg.winograd_plain(x, u, bias, mult, add), runs=5)
+        # cuDNN's conv on the NCHW view of the same NHWC memory (conv only:
+        # no library call takes the GN+SiLU prologue)
+        x_cl, w_oihw = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).to(torch.bfloat16)
+        bias_bf16 = bias.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, bias_bf16, padding=1))
+        p = b * (h // 2) * (w // 2)
+        bound_ms, bound_by = bound(
+            2.0 * 16 * p * ci * co,      # the 16 Winograd GEMMs
+            2.0 * b * h * w * (ci + co) + 2.0 * 16 * ci * co + 4.0 * co
+            + (8.0 * b * ci if gn else 0.0))
         log(f"[phase 3] wino {label} B={b} {h}x{w} {ci}->{co} prologue={gn} "
-            f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"cudnn_conv_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
         assert err <= REL_TOL, (label, err)
         table["winograd"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
-                 plain_ms=plain_ms))
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by))
 
 
 def reset_counts() -> None:
@@ -165,13 +242,15 @@ def reset_counts() -> None:
 
     fa.flash_attention_packed.launches = 0
     wg.conv3x3_winograd.launches = 0
+    fa.flash_attention.launches = 0
 
 
 def read_counts() -> dict:
     from minddiffusion_tpu_torch.ops import flash_attention as fa, winograd as wg
 
     return {"packed_attention": fa.flash_attention_packed.launches,
-            "winograd": wg.conv3x3_winograd.launches}
+            "winograd": wg.conv3x3_winograd.launches,
+            "flash_attention": fa.flash_attention.launches}
 
 
 # Kernel launches the SD2 architecture implies at 64x64 latents (512^2
@@ -183,8 +262,8 @@ def read_counts() -> dict:
 # and 4 at 16^2, output side 6 at 16^2 and 6 at 32^2, and the two Upsample
 # convs that land at 16^2 and 32^2. The VAE decode adds one K1 launch (its
 # mid attention at 64^2); its convs run at 64^2 and above, outside the gate.
-PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21}
-PER_DECODE = {"packed_attention": 1, "winograd": 0}
+PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0}
+PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0}
 
 
 def sd2_models(gen: torch.Generator):
@@ -261,10 +340,188 @@ def phase5() -> dict:
     return counts
 
 
+FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
+    ("unet_ds1_768x1024", 8, 12288, 12288, 5, 64, True, 1.0),
+    ("vae_mid_768x1024", 4, 12288, 12288, 1, 512, True, 1.0),
+    ("vae_mid_768x768", 4, 9216, 9216, 1, 512, True, 1.0),
+    # the sites where K1 runs today, for the route's re-derivation (S4)
+    ("unet_ds1_768x768", 8, 9216, 9216, 5, 64, True, 1.0),
+    ("vae_mid_512x512", 8, 4096, 4096, 1, 512, True, 1.0),
+    ("ragged_300x640_d64", 2, 300, 640, 5, 64, True, 1.0),
+    ("ragged_300x640_d512", 2, 300, 640, 1, 512, True, 1.0),
+    ("shift20_4096_d64", 2, 4096, 4096, 5, 64, False, 1.0),
+    ("exact_logits_gt_88", 2, 1024, 1024, 5, 64, True, 40.0),
+]
+
+
+def phase6(gen: torch.Generator, table: dict) -> None:
+    from minddiffusion_tpu_torch.ops import flash_attention as fa
+
+    for label, b, nq, nk, heads, d, exact, qmul in FLASH_CASES:
+        q, k, v = (torch.randn(b, n, heads, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (nq, nk, nk))
+        q = (q.float() * qmul).to(torch.bfloat16)
+        scale = d ** -0.5
+        ref = fa.flash_attention_plain(q, k, v, scale, exact)
+        got = fa.flash_attention(q, k, v, scale, exact)
+        torch.cuda.synchronize()
+        max_logit = None
+        if qmul != 1.0:
+            s = torch.matmul(q[0, :, 0].float() * scale, k[0, :, 0].float().T)
+            max_logit = s.max().item()
+            assert max_logit > 88, max_logit
+        abs_err, err = errors(got, ref)
+        assert torch.isfinite(got.float()).all(), label
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale, exact))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, exact), runs=3)
+        heads_view = [t.transpose(1, 2) for t in (q, k, v)]
+        library_ms, backend = sdpa_ms(*heads_view, scale)
+        bound_ms, bound_by = attention_bound(b, heads, nq, nk, d)
+        log(f"[phase 6] flash {label} B={b} Nq={nq} Nk={nk} heads={heads} D={d} "
+            f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})"
+            + (f" max_logit={max_logit:.1f}" if max_logit else ""))
+        assert err <= REL_TOL, (label, err)
+        table["flash_attention"]["cases"].append(
+            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, ref, got
+    torch.cuda.empty_cache()
+
+
+# Launches of the slice's paths, counted by hand from UNetConfig.sd2 and
+# VAEConfig (not from the port's gates). A UNet eval has 5 self-attentions
+# at each of ds 1, 2 and 4. Its stride-1 3x3 convs with C_in >= 512 are
+# Winograd-gated while the latent level's min(H, W) is in [12, 48]: the 21
+# at ds 2 and 4 (as at 512^2), and at 768-class sizes also the 14 at ds8
+# (12x16 at 768x1024, 12x12 at 768^2: 4 in the input blocks, 4 in the
+# middle block, 6 in the output blocks), 35 in all. The attention kernel of
+# a site follows the reference's route: at 768x1024 (96x128 latents) ds1 has
+# 12288 tokens, whose K/V footprint (12288 * 320 * 4 B + 128 * 320 * 6 B)
+# exceeds 12 MiB -> K4, ds2 has 3072 -> K1, ds4 has 768 (< 1024) -> einsum;
+# the VAE mid attention (512 channels, one head, 12288 tokens) -> K4. At
+# 768^2 (96x96) ds1 has 9216 tokens, footprint 12,042,240 B <= 12 MiB -> K1,
+# ds2 2304 -> K1; the VAE mid attention of the encoder and of the decoder
+# (9216 tokens) -> K4. The VAE's convs run at 96 px and above, outside the
+# Winograd gate.
+PATHS = {
+    # name: (per UNet eval, per VAE encode + decode, UNet evals)
+    "txt2img_768x1024_ddim50_b4": (
+        {"packed_attention": 5, "winograd": 35, "flash_attention": 5},
+        {"packed_attention": 0, "winograd": 0, "flash_attention": 1}, 50),
+    # img2img strength 0.75 of DDIM-50 runs int(0.75 * 50) = 37 steps
+    "img2img_768_s075_ddim50_b4": (
+        {"packed_attention": 10, "winograd": 35, "flash_attention": 0},
+        {"packed_attention": 0, "winograd": 0, "flash_attention": 2}, 37),
+    # DPM-Solver++ 2M, 20 steps: one UNet eval per step (the first at t = T,
+    # none after the last update)
+    "txt2img_512_dpm20_b8": (PER_UNET_EVAL, PER_DECODE, 20),
+}
+
+
+def expected_counts(path: str) -> dict:
+    per_eval, per_vae, evals = PATHS[path]
+    return {k: per_eval[k] * evals + per_vae[k] for k in KERNELS}
+
+
+def timed(fn) -> "tuple[torch.Tensor, float]":
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def phase7(models) -> dict:
+    """txt2img 768x1024 (H 768, W 1024), DDIM-50, CFG 9.0, batch 4."""
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    path, batch, height, width = "txt2img_768x1024_ddim50_b4", 4, 768, 1024
+    fn = StableDiffusionPipeline(models).build_txt2img(
+        height=height, width=width, num_steps=50, sampler="ddim",
+        guidance_scale=9.0, batch_size=batch)
+    tokens = torch.ones(batch, 77, dtype=torch.long)
+    uncond = torch.zeros(batch, 77, dtype=torch.long)
+    run = lambda: fn(models, tokens, uncond,  # noqa: E731
+                     torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    img1, first_s = timed(run)
+    counts = read_counts()
+    img2, batch_s = timed(run)
+    expected = expected_counts(path)
+    assert counts == expected, (path, counts, expected)
+    assert img1.shape == (batch, height, width, 3) and img1.dtype == torch.uint8
+    assert torch.equal(img1, img2), "same generator seed gave different images"
+    assert img1.float().std().item() > 1.0, "degenerate image"
+    log(f"[phase 7] {path} launches={counts} expected={expected} "
+        f"first_run_s={first_s:.3f} s_per_batch={batch_s:.3f} "
+        f"img_per_s={batch / batch_s:.4f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return counts
+
+
+def phase8(models) -> dict:
+    """img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4."""
+    from minddiffusion_tpu_torch.core import latents
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    path, batch, size = "img2img_768_s075_ddim50_b4", 4, 768
+    fn = StableDiffusionPipeline(models).build_img2img(
+        height=size, width=size, num_steps=50, strength=0.75, guidance_scale=9.0)
+    # a smooth colour field with noise on it, in [-1, 1]
+    ramp = torch.linspace(-1, 1, size, device="cuda")
+    init = torch.stack([ramp[None, :].expand(size, size), ramp[:, None].expand(size, size),
+                        torch.outer(ramp, ramp)], dim=-1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    init = (0.8 * init + 0.2 * torch.randn(size, size, 3, generator=gen, device="cuda"))
+    init = init.clamp(-1, 1)[None].repeat(batch, 1, 1, 1)
+    tokens = torch.ones(batch, 77, dtype=torch.long)
+    uncond = torch.zeros(batch, 77, dtype=torch.long)
+    reset_counts()
+    img, batch_s = timed(lambda: fn(models, init, tokens, uncond,
+                                    torch.Generator(device="cuda").manual_seed(8)))
+    counts = read_counts()
+    expected = expected_counts(path)
+    assert counts == expected, (path, counts, expected)
+    assert img.shape == (batch, size, size, 3) and img.dtype == torch.uint8
+    init_u8 = latents.unit_range_to_uint8(init)
+    moved = (img.float() - init_u8.float()).abs().mean().item()
+    assert moved > 5.0, f"output too close to the init image ({moved:.2f})"
+    assert img.float().std().item() > 1.0, "degenerate image"
+    log(f"[phase 8] {path} launches={counts} expected={expected} "
+        f"s_per_batch={batch_s:.3f} mean_abs_change_vs_init={moved:.2f}")
+    return counts
+
+
+def phase9(models) -> dict:
+    """txt2img 512^2 with DPM-Solver++ 2M, 20 steps, CFG 9.0, batch 8."""
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    path, batch, size = "txt2img_512_dpm20_b8", 8, 512
+    fn = StableDiffusionPipeline(models).build_txt2img(
+        height=size, width=size, num_steps=20, sampler="dpm",
+        guidance_scale=9.0, batch_size=batch)
+    tokens = torch.ones(batch, 77, dtype=torch.long)
+    uncond = torch.zeros(batch, 77, dtype=torch.long)
+    reset_counts()
+    img, batch_s = timed(lambda: fn(models, tokens, uncond,
+                                    torch.Generator(device="cuda").manual_seed(9)))
+    counts = read_counts()
+    expected = expected_counts(path)
+    assert counts == expected, (path, counts, expected)
+    assert img.shape == (batch, size, size, 3) and img.dtype == torch.uint8
+    assert img.float().std().item() > 1.0, "degenerate image"
+    log(f"[phase 9] {path} launches={counts} expected={expected} "
+        f"s_per_batch={batch_s:.3f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -275,21 +532,38 @@ def main() -> int:
         "winograd": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/winograd.cu",
             replaces="minddiffusion_tpu/ops/winograd.py:467", cases=[]),
+        "flash_attention": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces="minddiffusion_tpu/ops/flash_attention.py:124", cases=[]),
     }
     name = phase0()
     phase1()
     phase2(gen, table)
     phase3(gen, table)
     phase4(gen)
-    launches = phase5()
+    by_path = {"txt2img_512_ddim50_b8": phase5()}
+    phase6(gen, table)
+    models = sd2_models(torch.Generator(device="cuda").manual_seed(2))
+    by_path["txt2img_768x1024_ddim50_b4"] = phase7(models)
+    by_path["img2img_768_s075_ddim50_b4"] = phase8(models)
+    by_path["txt2img_512_dpm20_b8"] = phase9(models)
     kernels = []
     for kname, rec in table.items():
-        main_case = rec["cases"][0]     # the JSON line reports the first case
+        main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
+        runs = {p: counts[kname] for p, counts in by_path.items()}
+        # launches: on the first path that runs the kernel (the 512^2 main
+        # path for K1 and K2, the 768x1024 path for K4); every path's count
+        # is in launches_by_path, and each was checked above
+        launches = next(n for n in runs.values() if n)
         kernels.append(dict(
             name=kname, route=rec["route"], source=rec["source"],
-            replaces=rec["replaces"], launches=launches[kname],
+            replaces=rec["replaces"], launches=launches,
             max_abs_err=max(c["abs_err"] for c in rec["cases"]),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"]))
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], case=main_case["case"],
+            launches_by_path=runs))
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -54,7 +54,7 @@ def build_sd(family: str, dtype_str: str, device: torch.device, tiny: bool = Fal
 
 
 def tokenizer_for(family: str):
-    from minddiffusion_tpu.text import ClipBpeTokenizer
+    from minddiffusion_tpu_torch.text import ClipBpeTokenizer
 
     return ClipBpeTokenizer()
 

@@ -6,6 +6,11 @@ import torch
 DEFAULT_SCALE_FACTOR = 0.18215
 
 
+def scale_latents(z: torch.Tensor,
+                  scale_factor: float = DEFAULT_SCALE_FACTOR) -> torch.Tensor:
+    return z * scale_factor
+
+
 def unscale_latents(z: torch.Tensor,
                     scale_factor: float = DEFAULT_SCALE_FACTOR) -> torch.Tensor:
     return z / scale_factor

@@ -44,6 +44,16 @@ class DiffusionSchedule:
                linear_end: float = 2e-2) -> "DiffusionSchedule":
         return cls.from_betas(make_beta_schedule(n_timestep, linear_start, linear_end))
 
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Diffuse x_start to timestep t (int, (B,)), fp32:
+        sqrt(ac[t]) * x_start + sqrt(1 - ac[t]) * noise."""
+        shape = (-1,) + (1,) * (x_start.ndim - 1)
+        t = t.to("cpu", torch.int64)
+        a = self.sqrt_alphas_cumprod[t].reshape(shape).to(x_start.device)
+        s = self.sqrt_one_minus_alphas_cumprod[t].reshape(shape).to(x_start.device)
+        return a * x_start.float() + s * noise.float()
+
 
 def make_ddim_timesteps(num_ddim_timesteps: int,
                         num_ddpm_timesteps: int = 1000) -> np.ndarray:

@@ -1,12 +1,16 @@
-"""Heads-packed attention: the hand-written Hopper kernel and its plain version.
+"""Fused attention: the two hand-written Hopper kernels and their plain versions.
 
-Port of minddiffusion_tpu/ops/flash_attention.py `flash_attention_packed`
-(`_packed_kernel`): softmax(scale * Q K^T) V on packed (B, N, C = heads * D)
-tensors, head h being the column slice [h*D, (h+1)*D). The CUDA source is
-csrc/packed_attention.cu.
+Ports of minddiffusion_tpu/ops/flash_attention.py:
+  * `flash_attention_packed` (`_packed_kernel`, K1): softmax(scale * Q K^T) V
+    on packed (B, N, C = heads * D) tensors, head h being the column slice
+    [h*D, (h+1)*D). CUDA source csrc/packed_attention.cu.
+  * `flash_attention` (`_flash_bhnd` / `_attn_kernel`, K4): the same on
+    head-split (B, N, H, D) tensors with any Nq, Nk, in exact (online max)
+    or static-shift (exp(s - 20)) softmax. CUDA source
+    csrc/flash_attention.cu.
 
-`flash_attention_packed` takes the plain version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.
+Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -23,6 +27,11 @@ _SIGNATURES = {
     "mdt_packed_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+_FLASH_SIGNATURES = {
+    "mdt_flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+FAST_SHIFT = 20.0   # static softmax shift of exact_softmax=False (`_FAST_SHIFT`)
 
 
 def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,3 +105,64 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_packed.launches = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, exact_softmax: bool = True) -> torch.Tensor:
+    """K4's math in torch ops on (B, N, H, D): q scaled in fp32 and rounded
+    to its dtype, fp32 scores, fp32 numerators exp(s - row max) (exact) or
+    exp(s - 20) (static shift), P rounded to v's dtype before PV, fp32 PV
+    accumulation, division by the fp32 row sum of the unrounded P.
+
+    Runs one batch element at a time so the (H, Nq, Nk) fp32 score tensor
+    stays bounded at the card's shapes."""
+    out = torch.empty_like(q)
+    for i in range(q.shape[0]):
+        qi = (q[i].float() * scale).to(q.dtype).float().transpose(0, 1)  # (H, Nq, D)
+        ki = k[i].float().transpose(0, 1)
+        vi = v[i].float().transpose(0, 1)
+        s = torch.matmul(qi, ki.transpose(1, 2))               # (H, Nq, Nk)
+        s = s - (s.amax(dim=-1, keepdim=True) if exact_softmax else FAST_SHIFT)
+        p = torch.exp(s)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.matmul(p.to(v.dtype).float(), vi)
+        out[i] = (acc / l).transpose(0, 1).to(q.dtype)
+    return out
+
+
+FLASH_HEAD_DIMS = (64, 512)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, exact_softmax: bool = True) -> torch.Tensor:
+    """q (B, Nq, H, D), k/v (B, Nk, H, D) -> (B, Nq, H, D); any Nq, Nk.
+    Counts its kernel launches in `flash_attention.launches`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, exact_softmax)
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    for name, t, shape in (("q", q, (b, nq, h, d)), ("k", k, (b, nk, h, d)),
+                           ("v", v, (b, nk, h, d))):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned {shape}, "
+                             f"got {tuple(t.shape)}")
+    if d not in FLASH_HEAD_DIMS or nq < 1 or nk < 1:
+        raise ValueError(f"kernel takes head dim in {FLASH_HEAD_DIMS} and "
+                         f"Nq, Nk >= 1; got D={d}, Nq={nq}, Nk={nk}")
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention", _FLASH_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mdt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
+            h, d, float(scale), int(exact_softmax), stream)
+    _build.check(err, "flash_attention launch")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,4 +1,5 @@
-"""Stable Diffusion txt2img (port of minddiffusion_tpu/pipelines/stable_diffusion.py).
+"""Stable Diffusion txt2img and img2img (port of
+minddiffusion_tpu/pipelines/stable_diffusion.py).
 
     models = SDModels.create(family="sd2", dtype=torch.bfloat16,
                              attn_impl="fast", device="cuda", generator=g)
@@ -7,10 +8,12 @@
         guidance_scale=9.0, batch_size=8)
     images = fn(models, tokens, uncond_tokens, generator)  # uint8 (B, H, W, 3)
 
-One call: CLIP encode of the CFG-folded [uncond; cond] tokens, the sampler's
-step loop over the guided UNet (Winograd transforms hoisted once per call),
-VAE decode, uint8 quantization. Explicit `noise=` (B, H/8, W/8, 4) replaces
-the draw from `generator`.
+One txt2img call: CLIP encode of the CFG-folded [uncond; cond] tokens, the
+sampler's step loop over the guided UNet (Winograd transforms hoisted once
+per call), VAE decode, uint8 quantization. Explicit `noise=` (B, H/8, W/8, 4)
+replaces the draw from `generator`. img2img encodes the init image first and
+starts DDIM mid-chain; its explicit `enc_noise=` / `noise=` replace the
+posterior draw and the q_sample noise.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 
 from minddiffusion_tpu_torch.core import cfg as cfg_lib
-from minddiffusion_tpu_torch.core import latents
+from minddiffusion_tpu_torch.core import distributions, latents
 from minddiffusion_tpu_torch.core.schedules import DiffusionSchedule
 from minddiffusion_tpu_torch.io.sd_weights import PREFIXES
 from minddiffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
@@ -30,9 +33,9 @@ from minddiffusion_tpu_torch.models.layers import (
     GroupNorm32, LayerNormFp32, cast_for_inference)
 from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from minddiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-from minddiffusion_tpu_torch.samplers import ddim, plms
+from minddiffusion_tpu_torch.samplers import ddim, dpm_solver, plms
 
-SAMPLERS = {"ddim": ddim.sample, "plms": plms.sample}
+SAMPLERS = ("ddim", "plms", "dpm", "dpm_singlestep", "dpm_adaptive")
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
@@ -131,6 +134,36 @@ class SDModels:
             raise KeyError(f"unused checkpoint keys: {unused[:5]}")
 
 
+def _run_sampler(sampler: str, eps_fn, x_T: torch.Tensor, schedule: DiffusionSchedule,
+                 num_steps: int, generator: Optional[torch.Generator],
+                 t_start_index: Optional[int] = None) -> torch.Tensor:
+    if t_start_index is not None and sampler != "ddim":
+        # a mid-chain start (img2img strength < 1) exists for DDIM only; the
+        # PLMS history and the DPM tables are built for full chains
+        raise ValueError(f"t_start_index (img2img strength<1) requires "
+                         f"sampler='ddim', got {sampler!r}")
+    if sampler == "ddim":
+        return ddim.sample(eps_fn, x_T, schedule, num_steps=num_steps,
+                           generator=generator, t_start_index=t_start_index)
+    if sampler == "plms":
+        return plms.sample(eps_fn, x_T, schedule, num_steps=num_steps,
+                           generator=generator)
+    if sampler == "dpm":
+        return dpm_solver.sample(eps_fn, x_T, schedule, steps=num_steps)
+    if sampler == "dpm_singlestep":
+        return dpm_solver.sample_singlestep(eps_fn, x_T, schedule, steps=num_steps)
+    if sampler == "dpm_adaptive":
+        # the solver controls its own step size; num_steps is not used
+        return dpm_solver.sample_adaptive(eps_fn, x_T, schedule)
+    raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
+
+
+def _explicit(name: str, value, shape: tuple, device) -> torch.Tensor:
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(value.shape)}")
+    return torch.as_tensor(value).float().to(device)
+
+
 class StableDiffusionPipeline:
     def __init__(self, models: SDModels):
         self.models = models
@@ -142,7 +175,7 @@ class StableDiffusionPipeline:
         images (B, H, W, 3); tokens (B, L) ints. `fn.latents` (same call)
         returns the final latent instead."""
         if sampler not in SAMPLERS:
-            raise ValueError(f"unknown sampler {sampler!r}; ported: {sorted(SAMPLERS)}")
+            raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
         f = self.models.latent_factor
         h8, w8 = height // f, width // f
         shape = (batch_size, h8, w8, 4)
@@ -155,21 +188,80 @@ class StableDiffusionPipeline:
             tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
             ctx2 = models.text_encoder(tok2.to(dev))
             eps_fn = cfg_lib.wrap_model(models.unet, ctx2, guidance_scale)
-            if noise is None:
-                x_T = torch.randn(shape, generator=generator, device=dev)
-            elif tuple(noise.shape) != shape:
-                raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
-            else:
-                x_T = torch.as_tensor(noise).float().to(dev)
+            x_T = (torch.randn(shape, generator=generator, device=dev) if noise is None
+                   else _explicit("noise", noise, shape, dev))
             with models.unet.hoisted_winograd():
-                return SAMPLERS[sampler](eps_fn, x_T, models.schedule,
-                                         num_steps=num_steps, generator=generator)
+                return _run_sampler(sampler, eps_fn, x_T, models.schedule,
+                                    num_steps, generator)
 
         @torch.inference_mode()
         def fn(models: SDModels, tokens, uncond_tokens,
                generator: Optional[torch.Generator],
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
             z = sample_latents(models, tokens, uncond_tokens, generator, noise)
+            img = models.vae.decode(latents.unscale_latents(z, models.scale_factor))
+            return latents.unit_range_to_uint8(img)
+
+        fn.latents = sample_latents
+        return fn
+
+    def build_img2img(self, height: int = 512, width: int = 512,
+                      num_steps: int = 50, strength: float = 0.75,
+                      guidance_scale: float = 9.0) -> Callable:
+        """fn(models, init_image, tokens, uncond_tokens, generator,
+        enc_noise=None, noise=None) -> uint8 images (B, H, W, 3).
+
+        init_image (B, H, W, 3) in [-1, 1]. Encodes it, draws z0 from the
+        posterior (`enc_noise` (B, H/8, W/8, 4) replaces the draw), q_samples
+        z0 to DDIM step floor(strength * num_steps) from the end (`noise`
+        replaces that draw), denoises from there with DDIM (the one sampler
+        with a mid-chain start), decodes. `fn.latents` (same call) returns
+        the final latent instead."""
+        if not 0.0 < strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        t_enc = int(strength * num_steps)
+        if t_enc < 1:
+            raise ValueError(
+                f"strength={strength} rounds to 0 denoise steps at "
+                f"num_steps={num_steps} — raise strength or num_steps")
+        tables = ddim.build_tables(self.models.schedule, num_steps)
+        t_at = int(tables["t"][num_steps - t_enc])
+        f = self.models.latent_factor
+        h8, w8 = height // f, width // f
+
+        @torch.inference_mode()
+        def sample_latents(models: SDModels, init_image, tokens, uncond_tokens,
+                           generator: Optional[torch.Generator],
+                           enc_noise: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            dev = models.device
+            init_image = torch.as_tensor(init_image)
+            b = init_image.shape[0]
+            if tuple(init_image.shape) != (b, height, width, 3):
+                raise ValueError(f"init_image must be (B, {height}, {width}, 3), "
+                                 f"got {tuple(init_image.shape)}")
+            shape = (b, h8, w8, 4)
+            tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
+            ctx2 = models.text_encoder(tok2.to(dev))
+            eps_fn = cfg_lib.wrap_model(models.unet, ctx2, guidance_scale)
+            moments = models.vae.encode(init_image.to(dev))
+            eps = None if enc_noise is None else _explicit("enc_noise", enc_noise, shape, dev)
+            z0 = latents.scale_latents(distributions.sample(moments, generator, eps),
+                                       models.scale_factor)
+            noise = (torch.randn(shape, generator=generator, device=dev) if noise is None
+                     else _explicit("noise", noise, shape, dev))
+            x_mid = models.schedule.q_sample(z0, torch.full((b,), t_at), noise)
+            with models.unet.hoisted_winograd():
+                return _run_sampler("ddim", eps_fn, x_mid, models.schedule,
+                                    num_steps, generator, t_start_index=t_enc)
+
+        @torch.inference_mode()
+        def fn(models: SDModels, init_image, tokens, uncond_tokens,
+               generator: Optional[torch.Generator],
+               enc_noise: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            z = sample_latents(models, init_image, tokens, uncond_tokens, generator,
+                               enc_noise, noise)
             img = models.vae.decode(latents.unscale_latents(z, models.scale_factor))
             return latents.unit_range_to_uint8(img)
 

@@ -20,6 +20,12 @@ def broadcast_t(t: int, device) -> torch.Tensor:
     return torch.full((1,), int(t), dtype=torch.int64, device=device)
 
 
+def broadcast_time(t: float, device) -> torch.Tensor:
+    """A continuous model time (the DPM solvers' nodes) as a batch-1 fp32
+    (1,) tensor; `t` is taken at fp32, as the solvers' tables hold it."""
+    return torch.tensor([t], dtype=torch.float32, device=device)
+
+
 def masked_blend_fn(mask: Optional[torch.Tensor], x0: Optional[torch.Tensor],
                     sqrt_ac: torch.Tensor, sqrt_1mac: torch.Tensor,
                     generator: Optional[torch.Generator]):

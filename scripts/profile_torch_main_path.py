@@ -1,16 +1,17 @@
 """Where the time of the PyTorch port's main path goes, on one CUDA card.
 
     python3 scripts/profile_torch_main_path.py [--out output/profile_torch_main_path.txt]
+        [--height 512 --width 512 --batch 8]
 
-SD2 at full width with seeded random weights, bf16, 64x64 latents (512^2
-images), the CFG batch of 16 for the text encoder and the UNet, batch 8 for
-the VAE decode. Prints, one line each: the card's name and power limit; the
-ms of one text encode, one UNet eval and one VAE decode (CUDA events, median
-after warm-up); the wall ms and the summed device kernel ms of a UNet eval
-under torch.profiler (their gap is the share of the eval the card idles);
-and the Winograd kernel against cuDNN's conv (F.conv2d, channels-last) at
-five of its gated sites. The profiler's per-op table goes to `--out`.
-Imports nothing of JAX.
+SD2 at full width with seeded random weights, bf16, at the given image size
+and batch (default: the main path, 512^2 batch 8, so 64x64 latents and a CFG
+batch of 16 for the text encoder and the UNet). Prints, one line each: the
+card's name and power limit; the ms of one text encode, one UNet eval, one
+VAE decode and one VAE encode (CUDA events, median after warm-up); the wall
+ms and the summed device kernel ms of a UNet eval under torch.profiler
+(their gap is the share of the eval the card idles); and the Winograd
+kernel against cuDNN's conv (F.conv2d, channels-last) at five of its gated
+sites. The profiler's per-op table goes to `--out`. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 5) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="output/profile_torch_main_path.txt")
+    parser.add_argument("--height", type=int, default=512)
+    parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--batch", type=int, default=8)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
@@ -66,19 +70,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     models = SDModels.create(family="sd2", dtype=torch.bfloat16, attn_impl="fast",
                              device="cuda", generator=gen)
-    tokens = torch.cat([torch.zeros(8, 77, dtype=torch.long),
-                        torch.ones(8, 77, dtype=torch.long)]).cuda()
-    x = torch.randn(16, 64, 64, 4, generator=gen, device="cuda")
-    t = torch.full((16,), 501, device="cuda")
-    z = torch.randn(8, 64, 64, 4, generator=gen, device="cuda")
+    b, h8, w8 = args.batch, args.height // 8, args.width // 8
+    tokens = torch.cat([torch.zeros(b, 77, dtype=torch.long),
+                        torch.ones(b, 77, dtype=torch.long)]).cuda()
+    x = torch.randn(2 * b, h8, w8, 4, generator=gen, device="cuda")
+    t = torch.full((2 * b,), 501, device="cuda")
+    z = torch.randn(b, h8, w8, 4, generator=gen, device="cuda")
+    img = torch.rand(b, args.height, args.width, 3, generator=gen, device="cuda") * 2 - 1
     unet = models.unet
+    print(f"SD2 {args.height}x{args.width} batch {b} (CFG batch {2 * b})")
     with torch.inference_mode(), unet.hoisted_winograd():
         ctx = models.text_encoder(tokens)
         text_ms = cuda_ms(lambda: models.text_encoder(tokens))
         unet_ms = cuda_ms(lambda: unet(x, t, ctx))
         vae_ms = cuda_ms(lambda: models.vae.decode(z), runs=3)
-        print(f"text_encoder_B16_ms={text_ms:.3f} unet_eval_B16_ms={unet_ms:.3f} "
-              f"vae_decode_B8_ms={vae_ms:.3f}")
+        enc_ms = cuda_ms(lambda: models.vae.encode(img), runs=3)
+        print(f"text_encoder_B{2 * b}_ms={text_ms:.3f} unet_eval_B{2 * b}_ms={unet_ms:.3f} "
+              f"vae_decode_B{b}_ms={vae_ms:.3f} vae_encode_B{b}_ms={enc_ms:.3f}")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -95,7 +103,8 @@ def main() -> int:
     table = averages.table(sort_by="self_cuda_time_total", row_limit=30)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        f.write(f"per-op totals over {PROFILED_EVALS} UNet evals (CFG batch 16, 64x64)\n")
+        f.write(f"per-op totals over {PROFILED_EVALS} UNet evals (CFG batch {2 * b}, "
+                f"{h8}x{w8} latents)\n")
         f.write(table + "\n")
     del models, unet
     torch.cuda.empty_cache()

@@ -34,6 +34,44 @@ def test_packed_attention_kernel_matches_plain(cuda, nq, c, heads, exact):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("b,nq,nk,heads,d", [
+    (2, 1024, 1024, 5, 64), (1, 300, 640, 2, 64), (2, 77, 130, 1, 64),
+    (1, 1000, 1024, 1, 512), (2, 300, 640, 1, 512), (1, 40, 77, 1, 512),
+    (3, 1, 1, 2, 64), (1, 65, 1, 2, 512)])
+def test_flash_attention_kernel_matches_plain(cuda, b, nq, nk, heads, d, exact):
+    """K4 on (B, N, H, D), including Nq and Nk that are not tile multiples."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(b, n, heads, d, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    scale = d ** -0.5
+    ref = flash_attention.flash_attention_plain(q, k, v, scale, exact)
+    got = flash_attention.flash_attention(q, k, v, scale, exact)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 512])
+def test_flash_attention_exact_kernel_holds_logits_above_88(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 520, 1, d, generator=g, device=cuda) for _ in range(3))
+    q = (q * 40.0).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    scale = d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    assert logits.max().item() > 88.0
+    ref = flash_attention.flash_attention_plain(q, k, v, scale, True)
+    got = flash_attention.flash_attention(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("gn", [True, False])
 def test_winograd_kernel_matches_plain(cuda, gn):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -57,6 +95,9 @@ def test_gated_sites_raise_on_cuda_inputs_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 1024, 128, generator=g, device=cuda)
     with pytest.raises(TypeError):
         attention.packed_attention(q, q, q, heads=2)
+    wide = torch.randn(1, 1100, 512, generator=g, device=cuda)   # a K4 site (nk % 128)
+    with pytest.raises(TypeError):
+        attention.packed_attention(wide, wide, wide, heads=1)
     x = torch.randn(1, 16, 16, 512, generator=g, device=cuda)
     weight = torch.randn(64, 512, 3, 3, generator=g, device=cuda)
     with pytest.raises(TypeError):

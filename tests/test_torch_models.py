@@ -4,6 +4,8 @@ Both packages carry the same seeded random weights (tests/torch_parity.py),
 converted by the port's `state_dict_from_jax` and loaded strictly.
 Tolerance: 1e-4 abs.
 """
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -131,9 +133,30 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'minddiffusion_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True)
     assert int(out.stdout.strip()) >= 17
+
+
+def test_port_sources_import_no_jax_anywhere():
+    """Also imports inside functions (run only on some paths, so the
+    subprocess check above does not see them): no module of the port, and
+    not chip_smoke.py, names JAX or the JAX package in any import."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "minddiffusion_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "minddiffusion_tpu"}
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in banned]
+    assert len(files) > 20 and not bad, bad

@@ -55,8 +55,24 @@ def test_packed_attention_routes_by_the_token_gates():
     short = kv[:, :77]
     got = attention.packed_attention(q, short, short, 4)
     assert got.shape == q.shape
-    # on the CPU the wrapper runs the plain version and launches nothing
+    # a long site the footprint rule turns away (6400 keys x C 512 > 12 MiB)
+    # goes to the head-split kernel in exact mode, also under "fast": with
+    # logits far above 88 the raw-exp softmax would overflow, exact does not
+    wide_q = torch.from_numpy(rand(rng, 1, 1024, 512, scale=30.0))
+    wide_kv = torch.from_numpy(rand(rng, 1, 6400, 512))
+    assert not attention.packed_route(1024, 6400, 512)
+    assert (wide_q[0] @ wide_kv[0].T).max() * 512 ** -0.5 > 88
+    heads_split = [t[:, :, None] for t in (wide_q, wide_kv, wide_kv)]
+    ref = flash_attention.flash_attention_plain(*heads_split, 512 ** -0.5, True)[:, :, 0]
+    raw = flash_attention.packed_attention_plain(wide_q, wide_kv, wide_kv, 1,
+                                                 512 ** -0.5, exact=False)
+    assert torch.isfinite(ref).all() and not torch.isfinite(raw).all()
+    for impl in (None, "fast"):
+        got = attention.packed_attention(wide_q, wide_kv, wide_kv, 1, impl=impl)
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    # on the CPU the wrappers run their plain versions and launch nothing
     assert flash_attention.flash_attention_packed.launches == before
+    assert flash_attention.flash_attention.launches == 0
 
 
 @pytest.mark.parametrize("gn", [True, False])

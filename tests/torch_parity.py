@@ -59,8 +59,12 @@ def jax_models(attn_impl=None) -> JaxSDModels:
 
 
 def jax_params(models: JaxSDModels, seed: int = 0, size: int = 256) -> dict:
-    params = models.init_params(jax.random.PRNGKey(0), height=size, width=size)
-    return randomize(jax.device_get(params), seed)
+    """Seeded numpy params in the tree of `models.init_params`. Only the
+    tree's shapes are needed, so the init is traced (`jax.eval_shape`), not
+    run: running it eagerly costs ~50 s of op compiles per process."""
+    shapes = jax.eval_shape(
+        lambda: models.init_params(jax.random.PRNGKey(0), height=size, width=size))
+    return randomize(shapes, seed)
 
 
 def port_models(jmodels: JaxSDModels, params: dict, attn_impl=None) -> SDModels:
