@@ -4,7 +4,8 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the three CUDA kernels from minddiffusion_tpu_torch/ops/csrc, one
+  1. build the CUDA sources of the four kernels from
+     minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu), one
      nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes, beside F.scaled_dot_product_attention on the same tensors;
@@ -20,16 +21,25 @@ Phases (one line each; any failure raises and exits non-zero):
      launch counts;
   8. img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4, launch counts;
   9. txt2img 512^2 with the DPM-Solver++ (2M) sampler, 20 steps, batch 8,
-     launch counts.
+     launch counts;
+ 10. gathered-tile Winograd kernel (K3) vs its plain version at the phase-3
+     shapes, beside K2 and cuDNN's F.conv2d on the same tensors;
+ 11. one full-width Wukong-Huahua (SD1) UNet eval, kernel path vs plain path;
+ 12. path A: Wukong txt2img 512^2, DPM-Solver++ (2M) 15 steps, CFG 7.5,
+     batch 4: launch counts, identical bytes on a rerun;
+ 13. path B: Wukong inpaint 512^2 (9-channel UNet), PLMS-50, CFG 7.5,
+     batch 4, under MDT_WINO_TUNE=dma=0 (Winograd sites on K3).
+Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160).
 The library calls are timing yardsticks only; the port never calls them.
 Each path runs with the launch counters set to 0 just before it and read
-just after, held against counts derived by hand from the SD2 config. The
-line before the last is the kernel table as JSON; the last line is the
-device record. Imports nothing of JAX.
+just after, held against counts derived by hand from the SD2 and SD1
+configs. The line before the last is the kernel table as JSON; the last
+line is the device record. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -42,9 +52,14 @@ import torch.nn.functional as F
 
 REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
-KERNELS = ("packed_attention", "winograd", "flash_attention")
+KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered")
+SOURCES = ("packed_attention", "winograd", "flash_attention")   # csrc/<name>.cu; K2 and K3 share one
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
+# max SM clock (phase 0 reads it from nvidia-smi)
+MUFU_PER_CLOCK = 16 * 132
+CARD = {"exp_per_s": None}
 
 
 def log(msg: str) -> None:
@@ -82,8 +97,15 @@ def bound(flops: float, nbytes: float) -> "tuple[float, str]":
 
 
 def attention_bound(b: int, heads: int, nq: int, nk: int, d: int):
-    """QK^T and PV products; q, k, v read and out written in bf16."""
-    return bound(4.0 * b * heads * nq * nk * d, 2.0 * b * heads * d * (2 * nq + 2 * nk))
+    """(ms, "operations" or "bytes", the term that bounds: "mma", "exp" or
+    "bytes"): the larger of the bf16 tensor-core time of QK^T and PV, the
+    MUFU time of one fp32 exp per score (B*H*Nq*Nk), and the HBM time of
+    reading q, k, v and writing out in bf16."""
+    ms, by = bound(4.0 * b * heads * nq * nk * d, 2.0 * b * heads * d * (2 * nq + 2 * nk))
+    exp_ms = b * heads * nq * nk / CARD["exp_per_s"] * 1e3
+    if exp_ms > ms:
+        return exp_ms, "operations", "exp"
+    return ms, by, "mma" if by == "operations" else "bytes"
 
 
 def sdpa_ms(q, k, v, scale: float) -> "tuple[float, str]":
@@ -124,8 +146,12 @@ def phase0() -> str:
         triton_version = triton.__version__
     except ImportError:
         triton_version = "not installed"
+    max_sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"]).splitlines()[0])
+    CARD["exp_per_s"] = MUFU_PER_CLOCK * max_sm_mhz * 1e6
     log(f"[phase 0] device={name} torch={torch.__version__} "
-        f"cuda={torch.version.cuda} nvcc='{nvcc_line}' triton={triton_version}")
+        f"cuda={torch.version.cuda} nvcc='{nvcc_line}' triton={triton_version} "
+        f"max_sm_clock_mhz={max_sm_mhz:.0f} exp_per_s={CARD['exp_per_s']:.4g}")
     log(smi)
     return name
 
@@ -134,9 +160,9 @@ def phase1() -> None:
     from minddiffusion_tpu_torch.ops import _build
 
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.build, KERNELS))
-    log(f"[phase 1] built {', '.join(KERNELS)} in {time.time() - t0:.2f} s")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
+    log(f"[phase 1] built {', '.join(SOURCES)} in {time.time() - t0:.2f} s")
 
 
 ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
@@ -145,6 +171,15 @@ ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
     ("unet_ds1_768x768", 8, 9216, 320, 5, False, 1.0),
     ("vae_mid_attn", 8, 4096, 512, 1, True, 1.0),
     ("exact_logits_gt_88", 2, 1024, 320, 5, True, 40.0),
+    # SD1 (8 heads): D 40 at ds1, 80 at ds2 of 512^2, 160 at ds4 of 1024^2
+    ("wukong_ds1_512", 8, 4096, 320, 8, True, 1.0),
+    ("wukong_ds2_512", 8, 1024, 640, 8, True, 1.0),
+    ("wukong_ds4_1024", 8, 1024, 1280, 8, True, 1.0),
+    ("exact_logits_gt_88_d40", 2, 1024, 320, 8, True, 40.0),
+    # D 64 in the same mode on the same grid (B8, 8 heads, exact), so the
+    # SD1 widths are compared per flop with D 64 within one run
+    ("d64_exact_4096_h8", 8, 4096, 512, 8, True, 1.0),
+    ("d64_exact_1024_h8", 8, 1024, 512, 8, True, 1.0),
 ]
 
 
@@ -174,17 +209,17 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         d = c // heads
         heads_view = [t.view(b, n, heads, d).transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
-        bound_ms, bound_by = attention_bound(b, heads, n, n, d)
-        log(f"[phase 2] attn {label} B={b} N={n} C={c} heads={heads} "
+        bound_ms, bound_by, term = attention_bound(b, heads, n, n, d)
+        log(f"[phase 2] attn {label} B={b} N={n} C={c} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})"
+            f"bound_ms={bound_ms:.4f} ({term})"
             + (f" max_logit={max_logit:.1f}" if max_logit else ""))
         assert err <= REL_TOL, (label, err)
         table["packed_attention"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by))
+                 bound_by=bound_by, bound_term=term))
 
 
 WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
@@ -195,7 +230,7 @@ WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
 # The case the JSON line reports per kernel: K2's is the one without the
 # GN+SiLU prologue, where one cuDNN call computes the same function.
 MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plain",
-             "flash_attention": "unet_ds1_768x1024"}
+             "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -237,20 +272,22 @@ def phase3(gen: torch.Generator, table: dict) -> None:
                  bound_by=bound_by))
 
 
-def reset_counts() -> None:
+def wrappers() -> dict:
+    """The launch-counting wrapper of each kernel."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa, winograd as wg
 
-    fa.flash_attention_packed.launches = 0
-    wg.conv3x3_winograd.launches = 0
-    fa.flash_attention.launches = 0
+    return {"packed_attention": fa.flash_attention_packed,
+            "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
+            "winograd_gathered": wg.conv3x3_winograd_gathered}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from minddiffusion_tpu_torch.ops import flash_attention as fa, winograd as wg
-
-    return {"packed_attention": fa.flash_attention_packed.launches,
-            "winograd": wg.conv3x3_winograd.launches,
-            "flash_attention": fa.flash_attention.launches}
+    return {k: fn.launches for k, fn in wrappers().items()}
 
 
 # Kernel launches the SD2 architecture implies at 64x64 latents (512^2
@@ -262,8 +299,10 @@ def read_counts() -> dict:
 # and 4 at 16^2, output side 6 at 16^2 and 6 at 32^2, and the two Upsample
 # convs that land at 16^2 and 32^2. The VAE decode adds one K1 launch (its
 # mid attention at 64^2); its convs run at 64^2 and above, outside the gate.
-PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0}
-PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0}
+PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0,
+                 "winograd_gathered": 0}
+PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0,
+              "winograd_gathered": 0}
 
 
 def sd2_models(gen: torch.Generator):
@@ -351,6 +390,11 @@ FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
     ("ragged_300x640_d512", 2, 300, 640, 1, 512, True, 1.0),
     ("shift20_4096_d64", 2, 4096, 4096, 5, 64, False, 1.0),
     ("exact_logits_gt_88", 2, 1024, 1024, 5, 64, True, 40.0),
+    # SD1 (8 heads): the 1024^2 ds1 site (16384 tokens, D 40), ragged cases
+    ("wukong_ds1_1024", 8, 16384, 16384, 8, 40, True, 1.0),
+    ("ragged_300x640_d40", 2, 300, 640, 8, 40, True, 1.0),
+    ("ragged_300x640_d80", 2, 300, 640, 8, 80, True, 1.0),
+    ("ragged_300x640_d160", 2, 300, 640, 8, 160, True, 1.0),
 ]
 
 
@@ -376,16 +420,17 @@ def phase6(gen: torch.Generator, table: dict) -> None:
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, exact), runs=3)
         heads_view = [t.transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
-        bound_ms, bound_by = attention_bound(b, heads, nq, nk, d)
+        bound_ms, bound_by, term = attention_bound(b, heads, nq, nk, d)
         log(f"[phase 6] flash {label} B={b} Nq={nq} Nk={nk} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})"
+            f"bound_ms={bound_ms:.4f} ({term})"
             + (f" max_logit={max_logit:.1f}" if max_logit else ""))
         assert err <= REL_TOL, (label, err)
         table["flash_attention"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bound_term=term))
         del q, k, v, ref, got
     torch.cuda.empty_cache()
 
@@ -405,6 +450,13 @@ def phase6(gen: torch.Generator, table: dict) -> None:
 # ds2 2304 -> K1; the VAE mid attention of the encoder and of the decoder
 # (9216 tokens) -> K4. The VAE's convs run at 96 px and above, outside the
 # Winograd gate.
+#
+# The Wukong-Huahua paths (UNetConfig.sd1: the SD2 channel plan with 8 heads,
+# so head dims 40 / 80 / 160) have the same sites at 512^2: 10 self-
+# attentions at ds 1 and 2 per eval (ds1 4096 tokens x C 320, footprint
+# 5,734,400 B -> K1; ds2 1024 x 640 -> K1), 21 gated 3x3 convs per eval,
+# and one K1 per VAE call (encoder or decoder mid attention, 4096 tokens).
+# Path B sets MDT_WINO_TUNE=dma=0, so its 21 convs per eval take K3, not K2.
 PATHS = {
     # name: (per UNet eval, per VAE encode + decode, UNet evals)
     "txt2img_768x1024_ddim50_b4": (
@@ -417,12 +469,21 @@ PATHS = {
     # DPM-Solver++ 2M, 20 steps: one UNet eval per step (the first at t = T,
     # none after the last update)
     "txt2img_512_dpm20_b8": (PER_UNET_EVAL, PER_DECODE, 20),
+    # path A: DPM-Solver++ 2M, 15 steps, decode only
+    "wukong_txt2img_512_dpm15_b4": (PER_UNET_EVAL, PER_DECODE, 15),
+    # path B: PLMS-50 runs 51 evals (the Euler bootstrap's second eval);
+    # the masked image is encoded and the result decoded
+    "wukong_inpaint_512_plms50_b4_dma0": (
+        {"packed_attention": 10, "winograd": 0, "flash_attention": 0,
+         "winograd_gathered": 21},
+        {"packed_attention": 2, "winograd": 0, "flash_attention": 0,
+         "winograd_gathered": 0}, 51),
 }
 
 
 def expected_counts(path: str) -> dict:
     per_eval, per_vae, evals = PATHS[path]
-    return {k: per_eval[k] * evals + per_vae[k] for k in KERNELS}
+    return {k: per_eval.get(k, 0) * evals + per_vae.get(k, 0) for k in KERNELS}
 
 
 def timed(fn) -> "tuple[torch.Tensor, float]":
@@ -517,6 +578,167 @@ def phase9(models) -> dict:
     return counts
 
 
+def phase10(gen: torch.Generator, table: dict) -> None:
+    """K3 (gathered tiles; GN+SiLU applied on the host) at the phase-3
+    shapes, beside K2 and cuDNN's conv on the same tensors."""
+    from minddiffusion_tpu_torch.ops import winograd as wg
+
+    for label, b, h, w, ci, co, gn in WINO_CASES:
+        x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
+        kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
+        u = wg.transform_weights(kern).to(torch.bfloat16).contiguous()
+        bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+        mult = add = None
+        if gn:
+            mult = 1.0 + 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+            add = 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+        ref = wg.winograd_gathered_plain(x, u, bias, mult, add)
+        got = wg.conv3x3_winograd_gathered(x, u, bias, mult, add)
+        k2 = wg.conv3x3_winograd(x, u, bias, mult, add)
+        torch.cuda.synchronize()
+        abs_err, err = errors(got, ref)
+        _, err_k2 = errors(got, k2)
+        assert torch.isfinite(got.float()).all(), label
+        ms = cuda_ms(lambda: wg.conv3x3_winograd_gathered(x, u, bias, mult, add))
+        plain_ms = cuda_ms(lambda: wg.winograd_gathered_plain(x, u, bias, mult, add), runs=5)
+        k2_ms = cuda_ms(lambda: wg.conv3x3_winograd(x, u, bias, mult, add))
+        x_cl, w_oihw = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).to(torch.bfloat16)
+        bias_bf16 = bias.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, bias_bf16, padding=1))
+        p = b * (h // 2) * (w // 2)
+        bound_ms, bound_by = bound(
+            2.0 * 16 * p * ci * co,
+            2.0 * b * h * w * (ci + co) + 2.0 * 16 * ci * co + 4.0 * co
+            + (8.0 * b * ci if gn else 0.0))
+        log(f"[phase 10] wino_gathered {label} B={b} {h}x{w} {ci}->{co} host_gn={gn} "
+            f"max_abs_err={abs_err:.3e} rel_err={err:.3e} rel_err_vs_k2={err_k2:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} k2_ms={k2_ms:.4f} "
+            f"cudnn_conv_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        assert err <= REL_TOL and err_k2 <= REL_TOL, (label, err, err_k2)
+        table["winograd_gathered"]["cases"].append(
+            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                 k2_ms=k2_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by))
+
+
+def zh_tokens(batch: int, fill) -> torch.Tensor:
+    """Wordpiece-shaped ids: [CLS], seven copies of `fill` (none for the
+    empty prompt), [SEP], zero padding to 77."""
+    row = [101] + ([fill] * 7 if fill is not None else []) + [102]
+    ids = torch.zeros(batch, 77, dtype=torch.long)
+    ids[:, :len(row)] = torch.tensor(row)
+    return ids
+
+
+def wukong_models(family: str, gen: torch.Generator):
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+
+    return SDModels.create(family=family, dtype=torch.bfloat16, attn_impl=None,
+                           device="cuda", generator=gen)
+
+
+def phase11(gen: torch.Generator) -> None:
+    """One full-width SD1 (Wukong-Huahua) UNet eval: CFG batch 8, 64x64
+    latents, context 768, exact softmax; kernel path vs plain path."""
+    from minddiffusion_tpu_torch import ops
+
+    models = wukong_models("wukong", gen)
+    unet = models.unet
+    b, h8 = 8, 64
+    x = torch.randn(b, h8, h8, 4, generator=gen, device="cuda")
+    t = torch.linspace(1, 981, b, device="cuda").round().long()
+    ctx = torch.randn(b, 77, 768, generator=gen, device="cuda")
+    with torch.inference_mode(), unet.hoisted_winograd():
+        reset_counts()
+        eps_k = unet(x, t, ctx)
+        counts = read_counts()
+        with ops.plain_reference():
+            eps_p = unet(x, t, ctx)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: unet(x, t, ctx), runs=5)
+        with ops.plain_reference():
+            plain_ms = cuda_ms(lambda: unet(x, t, ctx), runs=5)
+    assert counts == PER_UNET_EVAL, (counts, PER_UNET_EVAL)
+    assert torch.isfinite(eps_k).all() and eps_k.shape == (b, h8, h8, 4)
+    rel_l2 = ((eps_k - eps_p).norm() / eps_p.norm()).item()
+    log(f"[phase 11] unet sd1 B={b} 64x64 bf16 launches={counts} "
+        f"rel_l2={rel_l2:.3e} eps_rms={eps_p.pow(2).mean().sqrt().item():.4f} "
+        f"kernel_path_ms={ms:.3f} plain_path_ms={plain_ms:.3f}")
+    assert rel_l2 <= REL_TOL, rel_l2
+    del models, unet
+    torch.cuda.empty_cache()
+
+
+def phase12() -> dict:
+    """Path A: Wukong txt2img 512^2, DPM-Solver++ 2M 15 steps, CFG 7.5,
+    batch 4 (the JAX CLI's wukong defaults), and a rerun."""
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    path, batch, size = "wukong_txt2img_512_dpm15_b4", 4, 512
+    models = wukong_models("wukong", torch.Generator(device="cuda").manual_seed(4))
+    fn = StableDiffusionPipeline(models).build_txt2img(
+        height=size, width=size, num_steps=15, sampler="dpm", guidance_scale=7.5,
+        batch_size=batch)
+    tokens, uncond = zh_tokens(batch, 5), zh_tokens(batch, None)
+    run = lambda: fn(models, tokens, uncond,  # noqa: E731
+                     torch.Generator(device="cuda").manual_seed(11))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    img1, first_s = timed(run)
+    counts = read_counts()
+    img2, batch_s = timed(run)
+    expected = expected_counts(path)
+    assert counts == expected, (path, counts, expected)
+    assert img1.shape == (batch, size, size, 3) and img1.dtype == torch.uint8
+    assert torch.equal(img1, img2), "same generator seed gave different images"
+    assert img1.float().std().item() > 1.0, "degenerate image"
+    log(f"[phase 12] {path} launches={counts} expected={expected} "
+        f"first_run_s={first_s:.3f} s_per_batch={batch_s:.3f} "
+        f"img_per_s={batch / batch_s:.4f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del models
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase13() -> dict:
+    """Path B: Wukong inpaint 512^2 (9-channel UNet), PLMS-50, CFG 7.5,
+    batch 4, under MDT_WINO_TUNE=dma=0 so that its Winograd sites take K3."""
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    path, batch, size = "wukong_inpaint_512_plms50_b4_dma0", 4, 512
+    models = wukong_models("wukong-inpaint", torch.Generator(device="cuda").manual_seed(5))
+    fn = StableDiffusionPipeline(models).build_inpaint(
+        height=size, width=size, num_steps=50, sampler="plms", guidance_scale=7.5)
+    ramp = torch.linspace(-1, 1, size, device="cuda")
+    image = torch.stack([ramp[None, :].expand(size, size), ramp[:, None].expand(size, size),
+                         torch.outer(ramp, ramp)], dim=-1)[None].repeat(batch, 1, 1, 1)
+    mask = torch.zeros(batch, size, size, 1, device="cuda")
+    mask[:, 128:384, 160:352] = 1.0               # repaint a central box
+    tokens, uncond = zh_tokens(batch, 7), zh_tokens(batch, None)
+    prev = os.environ.get("MDT_WINO_TUNE")
+    os.environ["MDT_WINO_TUNE"] = "dma=0"
+    try:
+        reset_counts()
+        img, batch_s = timed(lambda: fn(models, image, mask, tokens, uncond,
+                                        torch.Generator(device="cuda").manual_seed(12)))
+        counts = read_counts()
+    finally:
+        if prev is None:
+            del os.environ["MDT_WINO_TUNE"]
+        else:
+            os.environ["MDT_WINO_TUNE"] = prev
+    expected = expected_counts(path)
+    assert counts == expected, (path, counts, expected)
+    assert img.shape == (batch, size, size, 3) and img.dtype == torch.uint8
+    assert img.float().std().item() > 1.0, "degenerate image"
+    log(f"[phase 13] {path} launches={counts} expected={expected} "
+        f"s_per_batch={batch_s:.3f}")
+    del models
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -535,6 +757,9 @@ def main() -> int:
         "flash_attention": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/flash_attention.cu",
             replaces="minddiffusion_tpu/ops/flash_attention.py:124", cases=[]),
+        "winograd_gathered": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/winograd.cu",
+            replaces="minddiffusion_tpu/ops/winograd.py:494", cases=[]),
     }
     name = phase0()
     phase1()
@@ -547,13 +772,19 @@ def main() -> int:
     by_path["txt2img_768x1024_ddim50_b4"] = phase7(models)
     by_path["img2img_768_s075_ddim50_b4"] = phase8(models)
     by_path["txt2img_512_dpm20_b8"] = phase9(models)
+    del models
+    torch.cuda.empty_cache()
+    phase10(gen, table)
+    phase11(gen)
+    by_path["wukong_txt2img_512_dpm15_b4"] = phase12()
+    by_path["wukong_inpaint_512_plms50_b4_dma0"] = phase13()
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
         runs = {p: counts[kname] for p, counts in by_path.items()}
         # launches: on the first path that runs the kernel (the 512^2 main
-        # path for K1 and K2, the 768x1024 path for K4); every path's count
-        # is in launches_by_path, and each was checked above
+        # path for K1 and K2, the 768x1024 path for K4, path B for K3);
+        # every path's count is in launches_by_path, and each was checked above
         launches = next(n for n in runs.values() if n)
         kernels.append(dict(
             name=kname, route=rec["route"], source=rec["source"],
@@ -562,6 +793,8 @@ def main() -> int:
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], case=main_case["case"],
+            bound_term=main_case.get("bound_term", "mma" if main_case["bound_by"]
+                                     == "operations" else "bytes"),
             launches_by_path=runs))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

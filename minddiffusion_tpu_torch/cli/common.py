@@ -10,6 +10,9 @@ import torch
 from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# softmax at the packed-attention sites: SD2 runs the raw-exp mode of the
+# main-path bench; the wukong families keep the JAX CLI's exact softmax
+ATTN_IMPL = {"sd2": "fast", "wukong": None, "wukong-inpaint": None}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -18,31 +21,38 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def tiny_configs(family: str) -> dict:
+    """A structurally complete miniature of `family` for smoke tests."""
+    from minddiffusion_tpu_torch.models.clip import CLIPTextConfig
+    from minddiffusion_tpu_torch.models.unet import UNetConfig
+    from minddiffusion_tpu_torch.models.vae import VAEConfig
+
+    kw = dict(model_channels=32, num_res_blocks=1, attention_resolutions=(1, 2),
+              channel_mult=(1, 2), context_dim=32, attn_impl=ATTN_IMPL[family])
+    if family == "sd2":
+        unet = UNetConfig(num_head_channels=8, **kw)
+    else:
+        unet = UNetConfig(in_channels=9 if family == "wukong-inpaint" else 4,
+                          num_heads=4, use_linear_in_transformer=False, **kw)
+    return dict(unet_config=unet,
+                vae_config=VAEConfig(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1),
+                text_config=CLIPTextConfig(width=32, layers=2, heads=4,
+                                           use_quick_gelu=family != "sd2"))
+
+
 def build_sd(family: str, dtype_str: str, device: torch.device, tiny: bool = False,
              ckpt_path: Optional[str] = None, seed: int = 0) -> SDModels:
     """SD models with weights from an LDM-named torch checkpoint, or seeded
     random weights (with a warning) when no checkpoint is given.
     `tiny`: a structurally complete miniature for smoke tests."""
-    configs = {}
-    if tiny:
-        from minddiffusion_tpu_torch.models.clip import CLIPTextConfig
-        from minddiffusion_tpu_torch.models.unet import UNetConfig
-        from minddiffusion_tpu_torch.models.vae import VAEConfig
-
-        configs = dict(
-            unet_config=UNetConfig(model_channels=32, num_res_blocks=1,
-                                   attention_resolutions=(1, 2), channel_mult=(1, 2),
-                                   num_head_channels=8, context_dim=32,
-                                   attn_impl="fast"),
-            vae_config=VAEConfig(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1),
-            text_config=CLIPTextConfig(width=32, layers=2, heads=4))
+    configs = tiny_configs(family) if tiny else {}
     generator = None
     if ckpt_path is None:
         print("WARNING: no checkpoint given — using RANDOM weights (noise images)")
         generator = torch.Generator(device=device).manual_seed(seed)
     models = SDModels.create(family=family, dtype=DTYPES[dtype_str],
-                             attn_impl="fast", device=device, generator=generator,
-                             **configs)
+                             attn_impl=ATTN_IMPL[family], device=device,
+                             generator=generator, **configs)
     if ckpt_path is not None:
         obj = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         sd = obj.get("state_dict", obj)
@@ -54,9 +64,10 @@ def build_sd(family: str, dtype_str: str, device: torch.device, tiny: bool = Fal
 
 
 def tokenizer_for(family: str):
-    from minddiffusion_tpu_torch.text import ClipBpeTokenizer
+    """CLIP BPE for sd2, the zh wordpiece for the wukong families."""
+    from minddiffusion_tpu_torch.text import ClipBpeTokenizer, WordpieceZhTokenizer
 
-    return ClipBpeTokenizer()
+    return ClipBpeTokenizer() if family == "sd2" else WordpieceZhTokenizer()
 
 
 def save_images(images_uint8: torch.Tensor, outdir: str, prefix: str = "") -> list:

@@ -1,5 +1,5 @@
 """img2img CLI of the PyTorch port (the flag surface of minddiffusion_tpu's
-img2img CLI): encode the init image, q_sample it to the strength's DDIM
+img2img CLI, sd2 or wukong): encode the init image, q_sample it to the strength's DDIM
 step, denoise from there, decode.
 
     python -m minddiffusion_tpu_torch.cli.img2img --prompt "a horse" \
@@ -23,7 +23,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", type=str, required=True)
     p.add_argument("--init_image", type=str, required=True)
     p.add_argument("--strength", type=float, default=0.75)
-    p.add_argument("--family", choices=["sd2"], default="sd2")
+    p.add_argument("--family", choices=["sd2", "wukong"], default="sd2")
     p.add_argument("--ckpt_path", type=str, default=None,
                    help="LDM-named torch checkpoint (.ckpt/.pt)")
     p.add_argument("--outdir", type=str, default="output/img2img-samples")

@@ -47,12 +47,12 @@ _RES = {"norm_in": ("in_layers.0", "ident"), "conv_in": ("in_layers.2", "conv"),
         "conv_out": ("out_layers.3", "conv"), "skip": ("skip_connection", "conv")}
 
 
-def _transformer(parts, leaf) -> Entry:
+def _transformer(parts, leaf, use_linear: bool) -> Entry:
     head, rest = parts[0], parts[1:]
     if head == "norm":
         return _leaf(leaf, "norm", "ident")
-    if head in ("proj_in", "proj_out"):
-        return _leaf(leaf, head, "dense")
+    if head in ("proj_in", "proj_out"):         # dense (SD2) or 1x1 conv (SD1)
+        return _leaf(leaf, head, "dense" if use_linear else "conv")
     if head.startswith("block_"):
         base = f"transformer_blocks.{head[len('block_'):]}"
         inner = rest[0]
@@ -74,6 +74,7 @@ def _transformer(parts, leaf) -> Entry:
 def unet_translator(config) -> Callable[[Tuple[str, ...]], Entry]:
     """JAX UNet param path -> LDM name under model.diffusion_model."""
     nrb, mult = config.num_res_blocks, config.channel_mult
+    use_linear = config.use_linear_in_transformer
     attn_res = set(config.attention_resolutions)
     in_idx, n, ds = {}, 1, 1
     for level in range(len(mult)):
@@ -115,7 +116,7 @@ def unet_translator(config) -> Callable[[Tuple[str, ...]], Entry]:
             return _leaf(leaf, f"{base}.{m[0]}", m[1])
 
         def attn_leaf(base):
-            r = _transformer(parts, leaf)
+            r = _transformer(parts, leaf, use_linear)
             return None if r is None else (f"{base}.{r[0]}", r[1])
 
         if head in ("mid_res1", "mid_attn", "mid_res2"):

@@ -5,8 +5,10 @@ proj_out}; BasicTransformerBlock {attn1, attn2, ff.net.0.proj, ff.net.2,
 norm1..3}; CrossAttention {to_q, to_k, to_v, to_out.0}. Self-attention then
 cross-attention then a GEGLU feed-forward, each pre-LayerNorm with a
 residual. GEGLU uses the tanh GELU (flax `nn.gelu`); the SpatialTransformer
-GroupNorm uses eps 1e-6; proj_in/proj_out are linear (SD2). Attention runs
-on packed (B, N, heads * dim_head) tokens through ops/attention.
+GroupNorm uses eps 1e-6; proj_in/proj_out are linear (SD2,
+`use_linear=True`) or 1x1 convs (SD1), which compute the same per-token
+map but keep the LDM conv weight layout (O, I, 1, 1). Attention runs on
+packed (B, N, heads * dim_head) tokens through ops/attention.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddiffusion_tpu_torch.models.layers import GroupNorm32, LayerNormFp32
+from minddiffusion_tpu_torch.models.layers import Conv1x1, GroupNorm32, LayerNormFp32
 from minddiffusion_tpu_torch.ops.attention import packed_attention
 
 
@@ -81,20 +83,21 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> linear proj_in -> blocks over the H*W tokens -> proj_out
-    -> residual. NHWC in and out."""
+    """GroupNorm -> proj_in (linear, or 1x1 conv when not `use_linear`) ->
+    blocks over the H*W tokens -> proj_out -> residual. NHWC in and out."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None, use_linear: bool = True):
         super().__init__()
         inner = heads * dim_head
+        proj = nn.Linear if use_linear else Conv1x1
         self.norm = GroupNorm32(in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = proj(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head, context_dim, attn_impl)
             for _ in range(depth))
-        self.proj_out = nn.Linear(inner, in_channels)
+        self.proj_out = proj(inner, in_channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape

@@ -3,7 +3,10 @@ with OpenCLIP module names (token_embedding, positional_embedding,
 transformer.resblocks.i {ln_1, attn.in_proj_*, attn.out_proj, ln_2,
 mlp.c_fc, mlp.c_proj}, ln_final).
 
-SD2 preset: width 1024, 23 layers, 16 heads, tanh GELU. Token ids outside
+Presets: SD2 (`sd2_en`) width 1024, 23 layers, 16 heads, tanh GELU;
+Wukong-Huahua (`wukong_zh`) width 768, 12 layers, 12 heads, QuickGELU
+x * sigmoid(1.702 x), over the zh wordpiece vocabulary (ids below 21128
+of the 49408-row embedding). Token ids outside
 the vocabulary are clipped to it (JAX `take(..., mode='clip')`). Returns the
 full final-LayerNorm sequence (B, L, width) in fp32: the UNet's context.
 """
@@ -26,10 +29,19 @@ class CLIPTextConfig:
     layers: int = 23
     heads: int = 16
     context_length: int = 77
+    use_quick_gelu: bool = False
 
     @classmethod
     def sd2_en(cls, **kw) -> "CLIPTextConfig":
-        return cls(width=1024, layers=23, heads=16, **kw)
+        return cls(width=1024, layers=23, heads=16, use_quick_gelu=False, **kw)
+
+    @classmethod
+    def wukong_zh(cls, **kw) -> "CLIPTextConfig":
+        return cls(width=768, layers=12, heads=12, use_quick_gelu=True, **kw)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
 
 
 class CausalSelfAttention(nn.Module):
@@ -50,8 +62,9 @@ class CausalSelfAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, use_quick_gelu: bool = False):
         super().__init__()
+        self.use_quick_gelu = use_quick_gelu
         self.ln_1 = LayerNormFp32(width)
         self.attn = CausalSelfAttention(width, heads)
         self.ln_2 = LayerNormFp32(width)
@@ -61,7 +74,8 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), bias)
-        h = F.gelu(self.mlp.c_fc(self.ln_2(x)), approximate="tanh")
+        h = self.mlp.c_fc(self.ln_2(x))
+        h = quick_gelu(h) if self.use_quick_gelu else F.gelu(h, approximate="tanh")
         return x + self.mlp.c_proj(h)
 
 
@@ -76,7 +90,7 @@ class CLIPTextEncoder(nn.Module):
             torch.randn(config.context_length, config.width) * 0.01)
         self.transformer = nn.Module()
         self.transformer.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(config.width, config.heads)
+            ResidualAttentionBlock(config.width, config.heads, config.use_quick_gelu)
             for _ in range(config.layers))
         self.ln_final = LayerNormFp32(config.width)
 

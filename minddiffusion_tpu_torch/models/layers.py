@@ -2,11 +2,12 @@
 
 Activations are NHWC at every public function, as in the JAX package;
 convolutions run NCHW internally. Norms compute in fp32 and return the
-input dtype. `conv3x3_dispatch` sends a 3x3 stride-1 conv to the Winograd
+input dtype. `conv3x3_dispatch` sends a 3x3 stride-1 conv to a Winograd
 kernel at the gated shapes (ops/winograd.wino_route) and to F.conv2d
-otherwise; a GroupNorm+SiLU folded to a per-(batch, channel) affine
-(`gn=(mult, add)`) runs as the kernel's prologue there, elementwise
-elsewhere.
+otherwise: K2 by default, K3 (the gathered-tile kernel) under
+MDT_WINO_TUNE=dma=0, as the JAX package's `dma` flag does. A GroupNorm+SiLU
+folded to a per-(batch, channel) affine (`gn=(mult, add)`) runs as K2's
+prologue, on the host before K3's gather, elementwise elsewhere.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from torch import nn
 
 from minddiffusion_tpu_torch import ops
 from minddiffusion_tpu_torch.ops import winograd
+from minddiffusion_tpu_torch.utils.flags import flags
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -116,9 +118,9 @@ def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     `gn` = (mult, add), each (B, C_in) fp32: the conv input becomes
     silu(x * mult + add). `u_cache`: a dict that keeps the Winograd
     transform of `weight` (key "u") from one call to the next; without it
-    the transform is computed on every Winograd-routed call. Under
-    `ops.plain_reference()` the Winograd route runs the kernel's plain
-    version."""
+    the transform is computed on every Winograd-routed call; either kernel
+    takes the same U. Under `ops.plain_reference()` the Winograd route runs
+    the kernel's plain version."""
     _, h, w, c_in = x.shape
     if winograd.wino_route(h, w, c_in):
         u = None if u_cache is None else u_cache.get("u")
@@ -127,6 +129,10 @@ def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             if u_cache is not None:
                 u_cache["u"] = u
         mult, add = gn if gn is not None else (None, None)
+        if not flags().wino_dma:        # MDT_WINO_TUNE=dma=0: the gather path, K3
+            if ops.plain_active():
+                return winograd.winograd_gathered_plain(x, u, bias, mult, add)
+            return winograd.conv3x3_winograd_gathered(x, u, bias.float(), mult, add)
         if ops.plain_active():
             return winograd.winograd_plain(x, u, bias, mult, add)
         return winograd.conv3x3_winograd(x.contiguous(), u, bias.float(), mult, add)

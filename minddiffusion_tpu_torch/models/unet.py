@@ -51,6 +51,19 @@ class UNetConfig:
         return cls(num_head_channels=64, context_dim=1024,
                    use_linear_in_transformer=True, **kw)
 
+    @classmethod
+    def sd1(cls, **kw) -> "UNetConfig":
+        """Wukong-Huahua's SD1 UNet: 8 heads (head dim 40, 80, 160 at C 320,
+        640, 1280), context 768, 1x1-conv proj_in/proj_out."""
+        return cls(num_heads=8, context_dim=768, use_linear_in_transformer=False, **kw)
+
+    @classmethod
+    def sd1_inpaint(cls, **kw) -> "UNetConfig":
+        """The 9-channel inpaint UNet: [x_t (4), mask (1), masked-image
+        latent (4)] in."""
+        return cls(in_channels=9, num_heads=8, context_dim=768,
+                   use_linear_in_transformer=False, **kw)
+
 
 class ResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
@@ -93,8 +106,6 @@ class Upsample(nn.Module):
 class UNetModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if not config.use_linear_in_transformer:
-            raise NotImplementedError("only linear proj_in/proj_out (SD2) is ported")
         self.config = cfg = config
         mc = cfg.model_channels
         emb_dim = mc * 4
@@ -104,7 +115,8 @@ class UNetModel(nn.Module):
         def transformer(ch):
             heads, dim_head = cfg.head_split(ch)
             return SpatialTransformer(ch, heads, dim_head, cfg.transformer_depth,
-                                      cfg.context_dim, cfg.attn_impl)
+                                      cfg.context_dim, cfg.attn_impl,
+                                      cfg.use_linear_in_transformer)
 
         ds = 1
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(cfg.in_channels, mc)])])

@@ -21,10 +21,15 @@
 // ridge, so the tensor cores (and one exp per score) are the limit.
 //
 // Two tile plans, chosen by D at launch:
-//  * D = 64 (UNet heads): 4 warps x 16 q rows = 64-row q tile; Q fragments
-//    stay in registers, S (16 x 64 per warp) and the 16 x 64 fp32 output
-//    accumulator too; 64-key K/V tiles are double-buffered in shared memory
-//    with cp.async and read with ldmatrix (V with .trans).
+//  * D in {40, 64, 80, 160} (UNet heads: SD2's 64, SD1's 8 heads at C 320,
+//    640, 1280): 4 warps x 16 q rows = 64-row q tile; S (16 x 64 per warp)
+//    and the 16 x D fp32 output accumulator stay in registers (80 a thread
+//    at D = 160), and so do the Q fragments up to D = 80; 64-key K/V tiles
+//    are double-buffered in shared memory with cp.async and read with
+//    ldmatrix (V with .trans). mma.sync steps QK^T by 16 columns, so Q and
+//    K rows are zero-filled in shared memory from D to D rounded up to 16
+//    (48 at D = 40); PV and the stores stay at D columns. At D = 40 the
+//    fp32 exp, not the tensor cores, is the floor of the kernel.
 //  * D = 512 (the VAE's single head): a 64 x 512 fp32 accumulator is 128 KB,
 //    beyond one warp's registers, so D is split across 8 warps (each owns 64
 //    output columns of all 64 rows: 128 fp32 registers a thread). QK^T is
@@ -70,6 +75,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 matrices, transposed; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 
@@ -130,17 +143,27 @@ __device__ __forceinline__ void load_q_scaled(
   }
 }
 
-// ---------------------------------------------------------------- D = 64 --
+// ------------------------------------------------- D = 40, 64, 80, 160 --
 
 constexpr int T64 = 128;  // 4 warps
 
-__global__ void __launch_bounds__(T64) flash_d64_kernel(
+// Shared memory of the small-D plan: the Q tile and two buffers each of K
+// and V, rows of DK + PAD bf16 (DK = D rounded up to 16).
+constexpr size_t small_smem(int d) {
+  return (size_t)(BQ + 4 * BK) * ((d + 15) / 16 * 16 + PAD) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(T64) flash_small_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int nq, int nk, int heads, float scale, int exact) {
-  constexpr int D = 64;
-  constexpr int LD = D + PAD;
+  constexpr int DK = (D + 15) / 16 * 16;  // QK^T depth; columns D..DK-1 are 0
+  constexpr int LD = DK + PAD;
   constexpr int TILE = BK * LD;
+  // Q fragments stay in registers up to DK = 96; at D = 160 (80 accumulator
+  // registers a thread) they are re-read from shared memory every tile.
+  constexpr bool QREG = DK <= 96;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + BQ * LD;  // 2 buffers
@@ -156,6 +179,14 @@ __global__ void __launch_bounds__(T64) flash_d64_kernel(
   const __nv_bfloat16* vb = v + ((size_t)b * nk * heads + h) * D;
   const int ntiles = (nk + BK - 1) / BK;
 
+  if constexpr (DK != D) {  // zero the QK^T padding of Q and both K buffers
+    constexpr int PV_ = (DK - D) / 8;
+    for (int i = tid; i < (BQ + 2 * BK) * PV_; i += T64) {
+      const int r = i / PV_, cv = D + (i % PV_) * 8;
+      __nv_bfloat16* row = r < BQ ? qs + r * LD : ks + (r - BQ) * LD;
+      *reinterpret_cast<uint4*>(row + cv) = make_uint4(0, 0, 0, 0);
+    }
+  }
   load_tile_async<D, LD, T64>(ks, kb, 0, BK, nk, stride, tid);
   load_tile_async<D, LD, T64>(vs, vb, 0, BK, nk, stride, tid);
   cp_commit();
@@ -163,11 +194,13 @@ __global__ void __launch_bounds__(T64) flash_d64_kernel(
   __syncthreads();
 
   const int wr = warp * 16;
-  uint32_t qf[D / 16][4];
+  const __nv_bfloat16* qa =
+      qs + (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+  uint32_t qf[QREG ? DK / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks_ = 0; ks_ < D / 16; ++ks_)
-    ldsm_x4(qf[ks_], qs + (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                         ks_ * 16 + 8 * (lane >> 4));
+    for (int ks_ = 0; ks_ < DK / 16; ++ks_) ldsm_x4(qf[ks_], qa + ks_ * 16);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -195,14 +228,23 @@ __global__ void __launch_bounds__(T64) flash_d64_kernel(
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int ks_ = 0; ks_ < D / 16; ++ks_) {
+    for (int ks_ = 0; ks_ < DK / 16; ++ks_) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+        a[0] = qf[ks_][0];
+        a[1] = qf[ks_][1];
+        a[2] = qf[ks_][2];
+        a[3] = qf[ks_][3];
+      } else {
+        ldsm_x4(a, qa + ks_ * 16);
+      }
 #pragma unroll
       for (int p = 0; p < BK / 16; ++p) {
         uint32_t kf[4];
         ldsm_x4(kf, kt_s + (16 * p + (lane & 7) + 8 * (lane >> 4)) * LD +
                         ks_ * 16 + 8 * ((lane >> 3) & 1));
-        mma_bf16(s[2 * p], qf[ks_], kf[0], kf[1]);
-        mma_bf16(s[2 * p + 1], qf[ks_], kf[2], kf[3]);
+        mma_bf16(s[2 * p], a, kf[0], kf[1]);
+        mma_bf16(s[2 * p + 1], a, kf[2], kf[3]);
       }
     }
     if (kt + BK > nk) {  // ragged last tile: keys past nk leave the softmax
@@ -260,20 +302,27 @@ __global__ void __launch_bounds__(T64) flash_d64_kernel(
       l_run[1] += s[n][2] + s[n][3];
     }
 
-    // O += bf16(P) V: the S accumulators are reused as A fragments.
+    // O += bf16(P) V over D columns: pairs of 8-column blocks through
+    // ldmatrix.x4.trans, an odd last block (D = 40) through .x2.trans.
 #pragma unroll
     for (int jj = 0; jj < BK / 16; ++jj) {
       const uint32_t a[4] = {pack_bf16(s[2 * jj][0], s[2 * jj][1]),
                              pack_bf16(s[2 * jj][2], s[2 * jj][3]),
                              pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
                              pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
+      const __nv_bfloat16* vrow =
+          vt_s + (16 * jj + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD;
 #pragma unroll
       for (int p = 0; p < D / 16; ++p) {
         uint32_t vf[4];
-        ldsm_x4_t(vf, vt_s + (16 * jj + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                          16 * p + 8 * (lane >> 4));
+        ldsm_x4_t(vf, vrow + 16 * p + 8 * (lane >> 4));
         mma_bf16(acc[2 * p], a, vf[0], vf[1]);
         mma_bf16(acc[2 * p + 1], a, vf[2], vf[3]);
+      }
+      if constexpr (D % 16) {
+        uint32_t vf[2];
+        ldsm_x2_t(vf, vrow + D - 8);
+        mma_bf16(acc[D / 8 - 1], a, vf[0], vf[1]);
       }
     }
     __syncthreads();  // this buffer is refilled two tiles on
@@ -517,16 +566,24 @@ cudaError_t launch(Kernel kern, int threads, size_t smem, const void* q,
 }  // namespace
 
 // q: (bsz, nq, heads, d), k/v: (bsz, nk, heads, d), o: (bsz, nq, heads, d);
-// all bf16, contiguous. d in {64, 512}; nq, nk >= 1, any length.
+// all bf16, contiguous. d in {40, 64, 80, 160, 512}; nq, nk >= 1, any length.
 extern "C" int mdt_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int bsz, int nq, int nk, int heads,
                                    int d, float scale, int exact, void* stream) {
   if (nq < 1 || nk < 1 || bsz * heads > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 40:
+      return (int)launch(flash_small_kernel<40>, T64, small_smem(40), q, k, v, o,
+                         bsz, nq, nk, heads, scale, exact, s);
     case 64:
-      return (int)launch(flash_d64_kernel, T64,
-                         (size_t)(BQ + 4 * BK) * (64 + PAD) * 2, q, k, v, o,
+      return (int)launch(flash_small_kernel<64>, T64, small_smem(64), q, k, v, o,
+                         bsz, nq, nk, heads, scale, exact, s);
+    case 80:
+      return (int)launch(flash_small_kernel<80>, T64, small_smem(80), q, k, v, o,
+                         bsz, nq, nk, heads, scale, exact, s);
+    case 160:
+      return (int)launch(flash_small_kernel<160>, T64, small_smem(160), q, k, v, o,
                          bsz, nq, nk, heads, scale, exact, s);
     case 512:
       return (int)launch(flash_d512_kernel, TW, WIDE_SMEM, q, k, v, o, bsz, nq,

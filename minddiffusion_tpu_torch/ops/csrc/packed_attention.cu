@@ -22,14 +22,22 @@
 //
 // Tile plans, dispatched on D at launch: 4 warps x 16 q rows; each warp
 // keeps its S tile (16 x 64) and output accumulator (16 x DV) in registers.
-// D = 64 (the UNet) takes the whole head width per block (DV = D). D = 512 (the
-// VAE's single head) would need 16 x 512 fp32 accumulators per warp, beyond
-// the register file, so its output columns are split into chunks of DV = 128
-// over blockIdx.y: each chunk block recomputes S (QK^T over all 512 columns)
-// and accumulates only its 128 output columns. That spends 2.5x the minimal
-// flops at a site that runs once per decode; it is the simple plan, not the
-// fast one. The ragged q edge is masked (zero rows, no stores); Nk must be a
-// multiple of 64.
+// The UNet head widths (D = 64 for SD2; 40, 80 and 160 for SD1's 8 heads at
+// C 320, 640 and 1280) take the whole head per block (DV = D: 20 to 80
+// accumulator registers a thread). mma.sync m16n8k16 steps QK^T by 16
+// columns, so Q and K sit in shared memory zero-filled to DK = D rounded up
+// to 16 (48 for D = 40); PV and the stores stay at D columns. Every head
+// offset (h * D * 2 bytes: 80, 128, 160, 320) stays 16-byte aligned for the
+// vector loads. D = 512 (the VAE's single head) would need 16 x 512 fp32
+// accumulators per warp, beyond the register file, so its output columns are
+// split into chunks of DV = 128 over blockIdx.y: each chunk block recomputes
+// S (QK^T over all 512 columns) and accumulates only its 128 output columns.
+// That spends 2.5x the minimal flops at a site that runs once per decode; it
+// is the simple plan, not the fast one. The ragged q edge is masked (zero
+// rows, no stores); Nk must be a multiple of 64.
+//
+// At D = 40 the fp32 exp (one per score, 16 per clock per SM on the MUFU
+// units) takes longer than the QK^T and PV products on the tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,9 +73,10 @@ __global__ void __launch_bounds__(THREADS) packed_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int nq, int nk, int c, float scale, int exact) {
-  constexpr int LDQ = D + PAD;    // Q and K tiles: one row per token
+  constexpr int DK = (D + 15) / 16 * 16;  // QK^T depth, zero-filled past D
+  constexpr int LDQ = DK + PAD;   // Q and K tiles: one row per token
   constexpr int LDV = BK + PAD;   // V tile transposed: one row per V column
-  constexpr int VPR = D / 8;      // 16-byte vectors per Q/K row
+  constexpr int VPR = DK / 8;     // 16-byte vectors per Q/K shared row
   constexpr int VPRV = DV / 8;    // 16-byte vectors per V row chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -87,11 +96,12 @@ __global__ void __launch_bounds__(THREADS) packed_attention_kernel(
   const __nv_bfloat16* kb = k + (size_t)b * nk * c + col0;
   const __nv_bfloat16* vb = v + (size_t)b * nk * c + col0 + dv0;
 
-  // Q tile, scaled in fp32 then rounded to bf16; rows past nq are zero.
+  // Q tile, scaled in fp32 then rounded to bf16; rows past nq and columns
+  // past D are zero.
   for (int i = tid; i < BQ * VPR; i += THREADS) {
     const int r = i / VPR, cv = (i % VPR) * 8;
     uint4 packed = make_uint4(0, 0, 0, 0);
-    if (q0 + r < nq) {
+    if (q0 + r < nq && cv < D) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * c + cv);
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
@@ -116,7 +126,8 @@ __global__ void __launch_bounds__(THREADS) packed_attention_kernel(
     for (int i = tid; i < BK * VPR; i += THREADS) {
       const int r = i / VPR, cv = (i % VPR) * 8;
       *reinterpret_cast<uint4*>(ks + r * LDQ + cv) =
-          *reinterpret_cast<const uint4*>(kb + (size_t)(kt + r) * c + cv);
+          cv < D ? *reinterpret_cast<const uint4*>(kb + (size_t)(kt + r) * c + cv)
+                 : make_uint4(0, 0, 0, 0);
     }
     for (int i = tid; i < BK * VPRV; i += THREADS) {
       const int r = i / VPRV, cv = (i % VPRV) * 8;
@@ -133,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) packed_attention_kernel(
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
+    for (int kk = 0; kk < DK; kk += 16) {
       const __nv_bfloat16* qa = qs + (wr + g) * LDQ + kk + 2 * t;
       const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LDQ), ld32(qa + 8),
                              ld32(qa + 8 * LDQ + 8)};
@@ -230,8 +241,9 @@ template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bsz, int nq, int nk, int c, int heads, float scale,
                    int exact, cudaStream_t stream) {
+  constexpr int DK = (D + 15) / 16 * 16;
   const size_t smem =
-      (size_t)(BQ * (D + PAD) + BK * (D + PAD) + DV * (BK + PAD)) *
+      (size_t)(BQ * (DK + PAD) + BK * (DK + PAD) + DV * (BK + PAD)) *
       sizeof(__nv_bfloat16);
   auto kern = packed_attention_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -248,7 +260,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (bsz, nq, c), k/v: (bsz, nk, c), o: (bsz, nq, c); all bf16, contiguous.
-// Requires c % heads == 0, head dim in {64, 512}, nk % 64 == 0.
+// Requires c % heads == 0, head dim in {40, 64, 80, 160, 512}, nk % 64 == 0.
 extern "C" int mdt_packed_attention(const void* q, const void* k,
                                     const void* v, void* o, int bsz, int nq,
                                     int nk, int c, int heads, float scale,
@@ -256,6 +268,12 @@ extern "C" int mdt_packed_attention(const void* q, const void* k,
   if (c % heads != 0 || nk % BK != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c / heads) {
+    case 40:
+      return (int)launch<40, 40>(q, k, v, o, bsz, nq, nk, c, heads, scale, exact, s);
+    case 80:
+      return (int)launch<80, 80>(q, k, v, o, bsz, nq, nk, c, heads, scale, exact, s);
+    case 160:
+      return (int)launch<160, 160>(q, k, v, o, bsz, nq, nk, c, heads, scale, exact, s);
     case 64:
       return (int)launch<64, 64>(q, k, v, o, bsz, nq, nk, c, heads, scale, exact, s);
     case 512:

@@ -20,7 +20,7 @@ import torch
 
 from minddiffusion_tpu_torch.ops import _build
 
-KERNEL_HEAD_DIMS = (64, 512)
+KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)   # SD1 8-head widths, SD2, the VAE
 KEY_BLOCK = 64
 
 _SIGNATURES = {
@@ -32,6 +32,7 @@ _FLASH_SIGNATURES = {
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 FAST_SHIFT = 20.0   # static softmax shift of exact_softmax=False (`_FAST_SHIFT`)
+PLAIN_SCORE_BYTES = 4 << 30   # fp32 scores one step of flash_attention_plain holds
 
 
 def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,23 +115,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exp(s - 20) (static shift), P rounded to v's dtype before PV, fp32 PV
     accumulation, division by the fp32 row sum of the unrounded P.
 
-    Runs one batch element at a time so the (H, Nq, Nk) fp32 score tensor
-    stays bounded at the card's shapes."""
+    Runs one batch element, and within it as many heads as keep the
+    (heads, Nq, Nk) fp32 score tensor within PLAIN_SCORE_BYTES, at a time,
+    so that it stays bounded at the card's shapes."""
     out = torch.empty_like(q)
+    h, nq, nk = q.shape[2], q.shape[1], k.shape[1]
+    hc = max(1, min(h, PLAIN_SCORE_BYTES // (4 * nq * nk)))
     for i in range(q.shape[0]):
-        qi = (q[i].float() * scale).to(q.dtype).float().transpose(0, 1)  # (H, Nq, D)
-        ki = k[i].float().transpose(0, 1)
-        vi = v[i].float().transpose(0, 1)
-        s = torch.matmul(qi, ki.transpose(1, 2))               # (H, Nq, Nk)
-        s = s - (s.amax(dim=-1, keepdim=True) if exact_softmax else FAST_SHIFT)
-        p = torch.exp(s)
-        l = p.sum(dim=-1, keepdim=True)
-        acc = torch.matmul(p.to(v.dtype).float(), vi)
-        out[i] = (acc / l).transpose(0, 1).to(q.dtype)
+        for h0 in range(0, h, hc):
+            hs = slice(h0, h0 + hc)
+            qi = (q[i, :, hs].float() * scale).to(q.dtype).float().transpose(0, 1)
+            ki = k[i, :, hs].float().transpose(0, 1)           # (heads, Nk, D)
+            vi = v[i, :, hs].float().transpose(0, 1)
+            s = torch.matmul(qi, ki.transpose(1, 2))           # (heads, Nq, Nk)
+            s = s - (s.amax(dim=-1, keepdim=True) if exact_softmax else FAST_SHIFT)
+            p = torch.exp(s)
+            l = p.sum(dim=-1, keepdim=True)
+            acc = torch.matmul(p.to(v.dtype).float(), vi)
+            out[i, :, hs] = (acc / l).transpose(0, 1).to(q.dtype)
     return out
 
 
-FLASH_HEAD_DIMS = (64, 512)
+FLASH_HEAD_DIMS = (40, 64, 80, 160, 512)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

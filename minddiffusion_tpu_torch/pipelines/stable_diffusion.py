@@ -1,4 +1,4 @@
-"""Stable Diffusion txt2img and img2img (port of
+"""Stable Diffusion txt2img, img2img and inpaint (port of
 minddiffusion_tpu/pipelines/stable_diffusion.py).
 
     models = SDModels.create(family="sd2", dtype=torch.bfloat16,
@@ -13,7 +13,14 @@ sampler's step loop over the guided UNet (Winograd transforms hoisted once
 per call), VAE decode, uint8 quantization. Explicit `noise=` (B, H/8, W/8, 4)
 replaces the draw from `generator`. img2img encodes the init image first and
 starts DDIM mid-chain; its explicit `enc_noise=` / `noise=` replace the
-posterior draw and the q_sample noise.
+posterior draw and the q_sample noise. inpaint (the "wukong-inpaint" family's
+9-channel UNet) encodes the masked image and feeds [x_t, mask, z_masked] to
+the UNet at every step; `enc_noise=` / `noise=` replace its posterior draw
+and x_T.
+
+Families: "sd2" (CLIP-H + SD2 UNet), "wukong" (zh CLIP-L with QuickGELU +
+SD1 UNet, 8 heads, 1x1-conv proj_in/out), "wukong-inpaint" (the same with
+the 9-channel UNet); all share the KL-VAE and the linear schedule.
 """
 from __future__ import annotations
 
@@ -36,6 +43,11 @@ from minddiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from minddiffusion_tpu_torch.samplers import ddim, dpm_solver, plms
 
 SAMPLERS = ("ddim", "plms", "dpm", "dpm_singlestep", "dpm_adaptive")
+FAMILIES = {  # family: (UNet preset, text encoder preset)
+    "sd2": (UNetConfig.sd2, CLIPTextConfig.sd2_en),
+    "wukong": (UNetConfig.sd1, CLIPTextConfig.wukong_zh),
+    "wukong-inpaint": (UNetConfig.sd1_inpaint, CLIPTextConfig.wukong_zh),
+}
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
@@ -98,17 +110,17 @@ class SDModels:
         """Build on `device`. With `generator` the weights are drawn by
         `init_random_`; without, they are zero until `load_state_dict`.
         On a CUDA device the dtype is bfloat16, the one the kernels take."""
-        if family != "sd2":
-            raise ValueError(f"only the sd2 family is ported, got {family!r}")
+        if family not in FAMILIES:
+            raise ValueError(f"unknown SD family {family!r}; ported: {list(FAMILIES)}")
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels take bfloat16, got {dtype}; "
                              "use bfloat16 on a CUDA device (fp32 runs on the CPU)")
-        unet_config = unet_config or UNetConfig.sd2(attn_impl=attn_impl)
+        unet_preset, text_preset = FAMILIES[family]
+        unet_config = unet_config or unet_preset(attn_impl=attn_impl)
         with torch.device("meta"):
             nets = dict(unet=UNetModel(unet_config),
                         vae=AutoencoderKL(vae_config or VAEConfig()),
-                        text_encoder=CLIPTextEncoder(text_config
-                                                     or CLIPTextConfig.sd2_en()))
+                        text_encoder=CLIPTextEncoder(text_config or text_preset()))
         for name, net in nets.items():
             net.to_empty(device=device)
             if generator is not None:
@@ -136,22 +148,29 @@ class SDModels:
 
 def _run_sampler(sampler: str, eps_fn, x_T: torch.Tensor, schedule: DiffusionSchedule,
                  num_steps: int, generator: Optional[torch.Generator],
-                 t_start_index: Optional[int] = None) -> torch.Tensor:
+                 t_start_index: Optional[int] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`mask` (1 = keep) and `x0` blend the known latent region into every
+    step (ddim, plms, dpm, dpm_singlestep; the noise from `generator`)."""
     if t_start_index is not None and sampler != "ddim":
         # a mid-chain start (img2img strength < 1) exists for DDIM only; the
         # PLMS history and the DPM tables are built for full chains
         raise ValueError(f"t_start_index (img2img strength<1) requires "
                          f"sampler='ddim', got {sampler!r}")
+    if sampler == "dpm_adaptive" and (mask is not None or x0 is not None):
+        raise ValueError("dpm_adaptive does not support mask/x0 blending")
+    blend = dict(mask=mask, x0=x0, generator=generator)
     if sampler == "ddim":
         return ddim.sample(eps_fn, x_T, schedule, num_steps=num_steps,
-                           generator=generator, t_start_index=t_start_index)
+                           t_start_index=t_start_index, **blend)
     if sampler == "plms":
-        return plms.sample(eps_fn, x_T, schedule, num_steps=num_steps,
-                           generator=generator)
+        return plms.sample(eps_fn, x_T, schedule, num_steps=num_steps, **blend)
     if sampler == "dpm":
-        return dpm_solver.sample(eps_fn, x_T, schedule, steps=num_steps)
+        return dpm_solver.sample(eps_fn, x_T, schedule, steps=num_steps, **blend)
     if sampler == "dpm_singlestep":
-        return dpm_solver.sample_singlestep(eps_fn, x_T, schedule, steps=num_steps)
+        return dpm_solver.sample_singlestep(eps_fn, x_T, schedule, steps=num_steps,
+                                            **blend)
     if sampler == "dpm_adaptive":
         # the solver controls its own step size; num_steps is not used
         return dpm_solver.sample_adaptive(eps_fn, x_T, schedule)
@@ -261,6 +280,78 @@ class StableDiffusionPipeline:
                enc_noise: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
             z = sample_latents(models, init_image, tokens, uncond_tokens, generator,
+                               enc_noise, noise)
+            img = models.vae.decode(latents.unscale_latents(z, models.scale_factor))
+            return latents.unit_range_to_uint8(img)
+
+        fn.latents = sample_latents
+        return fn
+
+    def build_inpaint(self, height: int = 512, width: int = 512,
+                      num_steps: int = 50, sampler: str = "plms",
+                      guidance_scale: float = 7.5) -> Callable:
+        """fn(models, image, mask, tokens, uncond_tokens, generator,
+        enc_noise=None, noise=None) -> uint8 images (B, H, W, 3).
+
+        image (B, H, W, 3) in [-1, 1]; mask (B, H, W, 1), 1 = the region to
+        repaint, binarised at >= 0.5. The masked image image * (1 - mask)
+        is encoded and its posterior sampled (`enc_noise` (B, H/8, W/8, 4)
+        replaces the draw); the mask goes to the latent grid by half-pixel
+        nearest resampling (latent pixel i reads image pixel 8i + 4, JAX's
+        `jax.image.resize(..., "nearest")`, torch's "nearest-exact"). Every
+        UNet eval takes [x_t, mask, z_masked] (9 channels), the same for the
+        cond and uncond halves. x_T is drawn from `generator` (`noise`
+        replaces it). `fn.latents` (same call) returns the final latent."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
+        if self.models.unet.config.in_channels != 9:
+            raise ValueError("inpaint needs the 9-channel UNet (family 'wukong-inpaint')")
+        f = self.models.latent_factor
+        h8, w8 = height // f, width // f
+
+        @torch.inference_mode()
+        def sample_latents(models: SDModels, image, mask, tokens, uncond_tokens,
+                           generator: Optional[torch.Generator],
+                           enc_noise: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            dev = models.device
+            image, mask = torch.as_tensor(image).to(dev), torch.as_tensor(mask).to(dev)
+            b = image.shape[0]
+            if tuple(image.shape) != (b, height, width, 3) or \
+                    tuple(mask.shape) != (b, height, width, 1):
+                raise ValueError(f"image must be (B, {height}, {width}, 3) and mask "
+                                 f"(B, {height}, {width}, 1), got {tuple(image.shape)}, "
+                                 f"{tuple(mask.shape)}")
+            shape = (b, h8, w8, 4)
+            mask = (mask.float() >= 0.5).float()
+            masked_image = image.float() * (1.0 - mask)
+            tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
+            ctx2 = models.text_encoder(tok2.to(dev))
+            moments = models.vae.encode(masked_image)
+            eps = None if enc_noise is None else _explicit("enc_noise", enc_noise, shape, dev)
+            z_masked = latents.scale_latents(distributions.sample(moments, generator, eps),
+                                             models.scale_factor)
+            mask_lat = torch.nn.functional.interpolate(
+                mask.permute(0, 3, 1, 2), size=(h8, w8),
+                mode="nearest-exact").permute(0, 2, 3, 1)
+            c_cat2 = cfg_lib.duplicate(torch.cat([mask_lat, z_masked], dim=-1))
+
+            def unet_9ch(x2, t2, ctx):
+                return models.unet(torch.cat([x2, c_cat2.to(x2.dtype)], dim=-1), t2, ctx)
+
+            eps_fn = cfg_lib.wrap_model(unet_9ch, ctx2, guidance_scale)
+            x_T = (torch.randn(shape, generator=generator, device=dev) if noise is None
+                   else _explicit("noise", noise, shape, dev))
+            with models.unet.hoisted_winograd():
+                return _run_sampler(sampler, eps_fn, x_T, models.schedule, num_steps,
+                                    generator)
+
+        @torch.inference_mode()
+        def fn(models: SDModels, image, mask, tokens, uncond_tokens,
+               generator: Optional[torch.Generator],
+               enc_noise: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            z = sample_latents(models, image, mask, tokens, uncond_tokens, generator,
                                enc_noise, noise)
             img = models.vae.decode(latents.unscale_latents(z, models.scale_factor))
             return latents.unit_range_to_uint8(img)

@@ -7,8 +7,15 @@ time nodes, the expm1 coefficients, the r0/r1 step ratios, the order gates)
 is a host table built in fp64 numpy and stored as fp32, and the model takes
 continuous times in [0, 999]: t_input = (t - 1/N) * 1000. The step loops are
 Python loops; the adaptive solver's `lax.while_loop` becomes one too.
+
+The multistep and singlestep solvers take the JAX signatures' latent
+inpaint blending: with `mask` (1 = keep) and `x0`, each update is followed
+by x <- q_sample(x0, t) * mask + x * (1 - mask) at the integer timestep of
+the node just reached, the noise drawn from `generator`.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -120,12 +127,18 @@ def _check_thresholding(thresholding: bool, prediction: str) -> None:
 def sample(eps_fn: common.EpsFn, x_T: torch.Tensor, schedule: DiffusionSchedule,
            steps: int = 15, order: int = 2, skip_type: str = "time_uniform",
            lower_order_final: bool = True, prediction: str = "data",
-           thresholding: bool = False,
-           thresholding_max_val: float = 1.0) -> torch.Tensor:
-    """DPM-Solver multistep: `steps` model evals; returns the final latent (fp32)."""
+           thresholding: bool = False, thresholding_max_val: float = 1.0,
+           mask: Optional[torch.Tensor] = None, x0: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DPM-Solver multistep: `steps` model evals; returns the final latent (fp32).
+    With `mask`/`x0`, step i blends at timestep int(model_t[i + 1]) (the fp32
+    model time truncated, clipped to the schedule), as the JAX solver does."""
     _check_thresholding(thresholding, prediction)
     tab = build_tables(schedule, steps, skip_type, order, lower_order_final, prediction)
     f = _model_fn(eps_fn, prediction, thresholding, thresholding_max_val)
+    blend = common.masked_blend_fn(mask, x0, schedule.sqrt_alphas_cumprod,
+                                   schedule.sqrt_one_minus_alphas_cumprod, generator)
+    n_t = schedule.num_timesteps
     x = x_T.float()
     m_0 = f(x, tab["model_t"][0], tab["node_alpha"][0], tab["node_sigma"][0])
     m_1 = m_2 = torch.zeros_like(m_0)
@@ -139,6 +152,8 @@ def sample(eps_fn: common.EpsFn, x_T: torch.Tensor, schedule: DiffusionSchedule,
         x = (ratio * x - c0 * m_0
              - 0.5 * c0 * (o2 * (1.0 - o3)) * d1_0          # 2M correction
              + o3 * (cd1 * d1 - cd2 * d2))                  # 3M correction
+        if mask is not None:
+            x = blend(x, min(max(int(tab["model_t"][i + 1]), 0), n_t - 1))
         m_next = (f(x, tab["model_t"][i + 1], tab["node_alpha"][i + 1],
                     tab["node_sigma"][i + 1])
                   if i < steps - 1 else m_0)
@@ -184,7 +199,8 @@ def build_singlestep_groups(schedule: DiffusionSchedule, steps: int, order: int 
         a, sg, lam = _marginals(inner, t_disc, log_alpha_disc)
         h = lam[-1] - lam[0]
         co = dict(order=k, ev_mt=[(ti - 1.0 / n) * 1000.0 for ti in inner[:k]],
-                  ev_a=list(a[:k]), ev_s=list(sg[:k]))
+                  ev_a=list(a[:k]), ev_s=list(sg[:k]),
+                  t_int=int(np.clip((t - 1.0 / n) * 1000.0, 0, n - 1)))
         if prediction == "data":
             phi_1 = np.expm1(-h)
             co["at"] = sg[-1] / sg[0]
@@ -229,16 +245,23 @@ def sample_singlestep(eps_fn: common.EpsFn, x_T: torch.Tensor,
                       schedule: DiffusionSchedule, steps: int = 15, order: int = 2,
                       skip_type: str = "time_uniform",
                       prediction: str = "data", thresholding: bool = False,
-                      thresholding_max_val: float = 1.0) -> torch.Tensor:
-    """DPM-Solver singlestep: one update per group, `steps` model evals."""
+                      thresholding_max_val: float = 1.0,
+                      mask: Optional[torch.Tensor] = None,
+                      x0: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DPM-Solver singlestep: one update per group, `steps` model evals.
+    With `mask`/`x0`, each group's update blends at the group's end
+    timestep (`t_int`)."""
     _check_thresholding(thresholding, prediction)
     groups = build_singlestep_groups(schedule, steps, order, skip_type, prediction)
     f = _model_fn(eps_fn, prediction, thresholding, thresholding_max_val)
+    blend = common.masked_blend_fn(mask, x0, schedule.sqrt_alphas_cumprod,
+                                   schedule.sqrt_one_minus_alphas_cumprod, generator)
     x = x_T.float()
     for co in groups:
         k = co["order"]
         c = {name: float(val) for name, val in co.items()
-             if name not in ("order", "ev_mt", "ev_a", "ev_s")}
+             if name not in ("order", "ev_mt", "ev_a", "ev_s", "t_int")}
         m_s = f(x, co["ev_mt"][0], co["ev_a"][0], co["ev_s"][0])
         if k == 1:
             x = c["at"] * x + c["bt"] * m_s
@@ -251,6 +274,8 @@ def sample_singlestep(eps_fn: common.EpsFn, x_T: torch.Tensor,
                 x_s2 = c["a2"] * x + c["b2"] * m_s + c["c2"] * (m_s1 - m_s)
                 m_s2 = f(x_s2, co["ev_mt"][2], co["ev_a"][2], co["ev_s"][2])
                 x = c["at"] * x + c["bt"] * m_s + c["ct"] * (m_s2 - m_s)
+        if mask is not None:
+            x = blend(x, co["t_int"])
     return x
 
 

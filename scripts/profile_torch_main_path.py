@@ -1,17 +1,19 @@
 """Where the time of the PyTorch port's main path goes, on one CUDA card.
 
     python3 scripts/profile_torch_main_path.py [--out output/profile_torch_main_path.txt]
-        [--height 512 --width 512 --batch 8]
+        [--family sd2|wukong] [--height 512 --width 512 --batch 8]
 
-SD2 at full width with seeded random weights, bf16, at the given image size
-and batch (default: the main path, 512^2 batch 8, so 64x64 latents and a CFG
-batch of 16 for the text encoder and the UNet). Prints, one line each: the
+SD2 (raw-exp softmax at the packed-attention sites, as the main path) or
+Wukong-Huahua (SD1 UNet, zh CLIP; exact softmax) at full width with seeded
+random weights, bf16, at the given image size and batch (default: the main
+path, 512^2 batch 8, so 64x64 latents and a CFG batch of 16 for the text
+encoder and the UNet). Prints, one line each: the
 card's name and power limit; the ms of one text encode, one UNet eval, one
 VAE decode and one VAE encode (CUDA events, median after warm-up); the wall
 ms and the summed device kernel ms of a UNet eval under torch.profiler
 (their gap is the share of the eval the card idles); and the Winograd
-kernel against cuDNN's conv (F.conv2d, channels-last) at five of its gated
-sites. The profiler's per-op table goes to `--out`. Imports nothing of JAX.
+kernels (K2, and K3 on gathered tiles) against cuDNN's conv (F.conv2d,
+channels-last) at five of their gated sites. The profiler's per-op table goes to `--out`. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ def main() -> int:
     parser.add_argument("--height", type=int, default=512)
     parser.add_argument("--width", type=int, default=512)
     parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--family", choices=["sd2", "wukong"], default="sd2")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
@@ -68,7 +71,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    models = SDModels.create(family="sd2", dtype=torch.bfloat16, attn_impl="fast",
+    models = SDModels.create(family=args.family, dtype=torch.bfloat16,
+                             attn_impl="fast" if args.family == "sd2" else None,
                              device="cuda", generator=gen)
     b, h8, w8 = args.batch, args.height // 8, args.width // 8
     tokens = torch.cat([torch.zeros(b, 77, dtype=torch.long),
@@ -78,7 +82,7 @@ def main() -> int:
     z = torch.randn(b, h8, w8, 4, generator=gen, device="cuda")
     img = torch.rand(b, args.height, args.width, 3, generator=gen, device="cuda") * 2 - 1
     unet = models.unet
-    print(f"SD2 {args.height}x{args.width} batch {b} (CFG batch {2 * b})")
+    print(f"{args.family} {args.height}x{args.width} batch {b} (CFG batch {2 * b})")
     with torch.inference_mode(), unet.hoisted_winograd():
         ctx = models.text_encoder(tokens)
         text_ms = cuda_ms(lambda: models.text_encoder(tokens))
@@ -118,8 +122,9 @@ def main() -> int:
         x_cl = xs.permute(0, 3, 1, 2)             # NCHW view of NHWC memory
         cudnn_ms = cuda_ms(lambda: F.conv2d(x_cl, w, b.to(torch.bfloat16), padding=1))
         wino_ms = cuda_ms(lambda: winograd.conv3x3_winograd(xs, u, b))
+        gathered_ms = cuda_ms(lambda: winograd.conv3x3_winograd_gathered(xs, u, b))
         print(f"conv {hw}x{hw} {ci}->{co}: cudnn_direct_ms={cudnn_ms:.4f} "
-              f"winograd_kernel_ms={wino_ms:.4f}")
+              f"winograd_kernel_ms={wino_ms:.4f} gathered_kernel_ms={gathered_ms:.4f}")
     print(f"per-op table: {args.out}")
     return 0
 

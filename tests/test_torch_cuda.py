@@ -21,7 +21,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("nq,c,heads", [(1024, 320, 5), (300, 512, 1), (1000, 128, 2)])
+@pytest.mark.parametrize("nq,c,heads", [(1024, 320, 5), (300, 512, 1), (1000, 128, 2),
+                                        (1024, 320, 8), (300, 640, 8), (1000, 1280, 8)])
 def test_packed_attention_kernel_matches_plain(cuda, nq, c, heads, exact):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, n, c, generator=g, device=cuda).to(torch.bfloat16)
@@ -38,7 +39,9 @@ def test_packed_attention_kernel_matches_plain(cuda, nq, c, heads, exact):
 @pytest.mark.parametrize("b,nq,nk,heads,d", [
     (2, 1024, 1024, 5, 64), (1, 300, 640, 2, 64), (2, 77, 130, 1, 64),
     (1, 1000, 1024, 1, 512), (2, 300, 640, 1, 512), (1, 40, 77, 1, 512),
-    (3, 1, 1, 2, 64), (1, 65, 1, 2, 512)])
+    (3, 1, 1, 2, 64), (1, 65, 1, 2, 512),
+    (2, 1024, 1024, 8, 40), (1, 300, 640, 8, 80), (1, 300, 640, 8, 160),
+    (2, 77, 130, 3, 40), (1, 1, 1, 2, 160)])
 def test_flash_attention_kernel_matches_plain(cuda, b, nq, nk, heads, d, exact):
     """K4 on (B, N, H, D), including Nq and Nk that are not tile multiples."""
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -54,7 +57,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, nq, nk, heads, d, exact):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 def test_flash_attention_exact_kernel_holds_logits_above_88(cuda, d):
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 520, 1, d, generator=g, device=cuda) for _ in range(3))
@@ -88,6 +91,64 @@ def test_winograd_kernel_matches_plain(cuda, gn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads,d", [(8, 40), (8, 80), (8, 160)])
+def test_packed_attention_exact_kernel_holds_logits_above_88(cuda, heads, d):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 512, heads * d, generator=g, device=cuda) for _ in range(3))
+    q = (q * 40.0).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    scale = d ** -0.5
+    logits = (q[0, :, :d].float() * scale) @ k[0, :, :d].float().T
+    assert logits.max().item() > 88.0
+    ref = flash_attention.packed_attention_plain(q, k, v, heads, scale, True)
+    got = flash_attention.flash_attention_packed(q, k, v, heads, scale, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("h,w,block_rows", [(16, 12, 32), (48, 20, 32), (14, 18, 6)])
+def test_winograd_gathered_kernel_matches_plain(cuda, gn, h, w, block_rows):
+    """K3 on one tile (H <= block_rows), on two with bottom padding (48 rows
+    in tiles of 32), and on three."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, h, w, 520, generator=g, device=cuda).to(torch.bfloat16)
+    kern = torch.randn(3, 3, 520, 136, generator=g, device=cuda) * (9 * 520) ** -0.5
+    u = winograd.transform_weights(kern).to(torch.bfloat16).contiguous()
+    bias = torch.randn(136, generator=g, device=cuda)
+    mult = 1.0 + 0.1 * torch.randn(2, 520, generator=g, device=cuda) if gn else None
+    add = 0.1 * torch.randn(2, 520, generator=g, device=cuda) if gn else None
+    before = winograd.conv3x3_winograd_gathered.launches
+    ref = winograd.winograd_gathered_plain(x, u, bias, mult, add, block_rows)
+    got = winograd.conv3x3_winograd_gathered(x, u, bias, mult, add, block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h, w, 136)
+    assert winograd.conv3x3_winograd_gathered.launches == before + 1
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_dma_off_sends_winograd_sites_to_the_gathered_kernel(cuda, monkeypatch):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 16, 16, 512, generator=g, device=cuda).to(torch.bfloat16)
+    weight = (torch.randn(64, 512, 3, 3, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    bias = torch.zeros(64, device=cuda)
+    k2, k3 = winograd.conv3x3_winograd.launches, winograd.conv3x3_winograd_gathered.launches
+    a = conv3x3_dispatch(x, weight, bias)
+    monkeypatch.setenv("MDT_WINO_TUNE", "dma=0")
+    b = conv3x3_dispatch(x, weight, bias)
+    torch.cuda.synchronize()
+    assert winograd.conv3x3_winograd.launches == k2 + 1
+    assert winograd.conv3x3_winograd_gathered.launches == k3 + 1
+    err = (a.float() - b.float()).abs().max() / a.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
 def test_gated_sites_raise_on_cuda_inputs_the_kernels_do_not_take(cuda):
     """A kernel site with CUDA tensors the kernel does not take (here fp32)
     raises instead of running the plain version on the card."""
@@ -102,3 +163,10 @@ def test_gated_sites_raise_on_cuda_inputs_the_kernels_do_not_take(cuda):
     weight = torch.randn(64, 512, 3, 3, generator=g, device=cuda)
     with pytest.raises(TypeError):
         conv3x3_dispatch(x, weight, torch.zeros(64, device=cuda))
+    with pytest.raises(TypeError):
+        winograd.conv3x3_winograd_gathered(
+            x, torch.zeros(16, 512, 64, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(64, device=cuda))
+    odd = torch.randn(1, 1024, 8 * 48, generator=g, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):   # D 48 is no SD width
+        flash_attention.flash_attention_packed(odd, odd, odd, 8, 48 ** -0.5)

@@ -1,6 +1,9 @@
 """Shared set-up of the JAX-vs-port parity tests (tests/test_torch_*.py).
 
-Tiny SD2-flavoured models are built in both packages with the same weights:
+Tiny models of one family ("sd2": head_dim 8, linear proj_in/out, tanh-GELU
+CLIP; "wukong" / "wukong-inpaint": 4 heads, 1x1-conv proj_in/out, QuickGELU
+CLIP, the inpaint UNet with 9 input channels) are built in both packages
+with the same weights:
 every JAX param leaf is overwritten with seeded numpy values (JAX init
 zeroes out_conv, each ResBlock conv_out and each SpatialTransformer
 proj_out, which would make eps identically zero and hide attention), then
@@ -24,7 +27,12 @@ from minddiffusion_tpu_torch.models.vae import VAEConfig
 from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 
 UNET_KW = dict(model_channels=32, channel_mult=(1, 2), attention_resolutions=(1, 2),
-               num_res_blocks=1, num_head_channels=8, context_dim=32)
+               num_res_blocks=1, context_dim=32)
+FAMILY_UNET_KW = {
+    "sd2": dict(num_head_channels=8, use_linear_in_transformer=True),
+    "wukong": dict(num_heads=4, use_linear_in_transformer=False),
+    "wukong-inpaint": dict(num_heads=4, use_linear_in_transformer=False, in_channels=9),
+}
 VAE_KW = dict(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
 CLIP_KW = dict(vocab_size=49408, width=32, layers=2, heads=4, context_length=77)
 
@@ -50,12 +58,12 @@ def randomize(tree, seed: int):
     return jax.tree_util.tree_map_with_path(draw, tree)
 
 
-def jax_models(attn_impl=None) -> JaxSDModels:
+def jax_models(attn_impl=None, family: str = "sd2") -> JaxSDModels:
     return JaxSDModels.create(
-        family="sd2", dtype=jnp.float32, attn_impl=attn_impl,
-        unet_config=JaxUNetConfig(use_linear_in_transformer=True, attn_impl=attn_impl,
-                                  **UNET_KW),
-        vae_config=JaxVAEConfig(**VAE_KW), text_config=JaxCLIPConfig(**CLIP_KW))
+        family=family, dtype=jnp.float32, attn_impl=attn_impl,
+        unet_config=JaxUNetConfig(attn_impl=attn_impl, **UNET_KW, **FAMILY_UNET_KW[family]),
+        vae_config=JaxVAEConfig(**VAE_KW),
+        text_config=JaxCLIPConfig(use_quick_gelu=family != "sd2", **CLIP_KW))
 
 
 def jax_params(models: JaxSDModels, seed: int = 0, size: int = 256) -> dict:
@@ -67,12 +75,14 @@ def jax_params(models: JaxSDModels, seed: int = 0, size: int = 256) -> dict:
     return randomize(shapes, seed)
 
 
-def port_models(jmodels: JaxSDModels, params: dict, attn_impl=None) -> SDModels:
-    """The port's fp32 CPU models carrying `params`."""
+def port_models(jmodels: JaxSDModels, params: dict, attn_impl=None,
+                family: str = "sd2") -> SDModels:
+    """The port's fp32 CPU models carrying `params` (loaded strictly)."""
     models = SDModels.create(
-        dtype=torch.float32, device="cpu",
-        unet_config=UNetConfig(attn_impl=attn_impl, **UNET_KW),
-        vae_config=VAEConfig(**VAE_KW), text_config=CLIPTextConfig(**CLIP_KW))
+        family=family, dtype=torch.float32, device="cpu",
+        unet_config=UNetConfig(attn_impl=attn_impl, **UNET_KW, **FAMILY_UNET_KW[family]),
+        vae_config=VAEConfig(**VAE_KW),
+        text_config=CLIPTextConfig(use_quick_gelu=family != "sd2", **CLIP_KW))
     models.load_state_dict(state_dict_from_jax(params, jmodels.unet.config))
     return models
 
