@@ -4,7 +4,7 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the CUDA sources of the four kernels from
+  1. build the CUDA sources of the five kernels from
      minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu), one
      nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
@@ -28,8 +28,20 @@ Phases (one line each; any failure raises and exits non-zero):
  12. path A: Wukong txt2img 512^2, DPM-Solver++ (2M) 15 steps, CFG 7.5,
      batch 4: launch counts, identical bytes on a rerun;
  13. path B: Wukong inpaint 512^2 (9-channel UNet), PLMS-50, CFG 7.5,
-     batch 4, under MDT_WINO_TUNE=dma=0 (Winograd sites on K3).
-Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160).
+     batch 4, under MDT_WINO_TUNE=dma=0 (Winograd sites on K3);
+ 14. one full-width Taichu-GLIDE base eval (CFG batch 16, 64 px) and one
+     super-res eval (batch 8, 256 px), kernel path vs plain path;
+ 15. the GLIDE cascade (64 px base, 60 ancestral steps, guidance 5.0 ->
+     256 px super-res, "fast27" DDIM -> 1024 px SRGAN), batch 8: uint8
+     shapes, identical bytes on a rerun, launch counts, s/batch per stage;
+ 16. the fused sampler tail (K9) vs its plain version and vs the port's own
+     unfused super-res step on features caught in a phase-15-sized SR run,
+     and in its "sd" mode at the SD2 main-path shape, beside the unfused
+     chain (GN+SiLU, cuDNN's conv, the sampler step). No path launches K9
+     (the JAX package retired its pipeline hook).
+Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
+phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
+ones (Nk = Nq + 128).
 The library calls are timing yardsticks only; the port never calls them.
 Each path runs with the launch counters set to 0 just before it and read
 just after, held against counts derived by hand from the SD2 and SD1
@@ -52,8 +64,10 @@ import torch.nn.functional as F
 
 REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
-KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered")
-SOURCES = ("packed_attention", "winograd", "flash_attention")   # csrc/<name>.cu; K2 and K3 share one
+KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered",
+           "glide_tail")
+# csrc/<name>.cu; K2 and K3 share one
+SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail")
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
@@ -181,14 +195,24 @@ ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
     ("d64_exact_4096_h8", 8, 4096, 512, 8, True, 1.0),
     ("d64_exact_1024_h8", 8, 1024, 512, 8, True, 1.0),
 ]
+GLIDE_ATTN_CASES = [  # (label, B, Nq, Nk, C, heads): exact, 128 text keys first
+    ("glide_base_ds2", 16, 1024, 1152, 384, 6),     # 32^2 of the 64 px base, CFG batch
+    ("glide_sr_ds8", 8, 1024, 1152, 384, 6),        # 32^2 of the 256 px super-res
+    # the 16^2 tier that MDT_GLIDE_TUNE=attn_route=256 sends to K1
+    ("glide_sr_ds16_attn_route_256", 8, 256, 384, 768, 12),
+]
 
 
 def phase2(gen: torch.Generator, table: dict) -> None:
     from minddiffusion_tpu_torch.ops import flash_attention as fa
 
-    for label, b, n, c, heads, exact, qmul in ATTN_CASES:
-        q, k, v = (torch.randn(b, n, c, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    cases = ([(label, b, n, n, c, heads, exact, qmul)
+              for label, b, n, c, heads, exact, qmul in ATTN_CASES]
+             + [(label, b, nq, nk, c, heads, True, 1.0)
+                for label, b, nq, nk, c, heads in GLIDE_ATTN_CASES])
+    for label, b, n, nk, c, heads, exact, qmul in cases:
+        q, k, v = (torch.randn(b, m, c, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for m in (n, nk, nk))
         q = (q.float() * qmul).to(torch.bfloat16)
         scale = (c // heads) ** -0.5
         ref = fa.packed_attention_plain(q, k, v, heads, scale, exact)
@@ -207,10 +231,10 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         plain_ms = cuda_ms(lambda: fa.packed_attention_plain(q, k, v, heads, scale, exact),
                            runs=5)
         d = c // heads
-        heads_view = [t.view(b, n, heads, d).transpose(1, 2) for t in (q, k, v)]
+        heads_view = [t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
-        bound_ms, bound_by, term = attention_bound(b, heads, n, n, d)
-        log(f"[phase 2] attn {label} B={b} N={n} C={c} heads={heads} D={d} "
+        bound_ms, bound_by, term = attention_bound(b, heads, n, nk, d)
+        log(f"[phase 2] attn {label} B={b} Nq={n} Nk={nk} C={c} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
             f"bound_ms={bound_ms:.4f} ({term})"
@@ -230,7 +254,8 @@ WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
 # The case the JSON line reports per kernel: K2's is the one without the
 # GN+SiLU prologue, where one cuDNN call computes the same function.
 MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plain",
-             "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain"}
+             "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain",
+             "glide_tail": "glide_sr_256"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -274,11 +299,12 @@ def phase3(gen: torch.Generator, table: dict) -> None:
 
 def wrappers() -> dict:
     """The launch-counting wrapper of each kernel."""
-    from minddiffusion_tpu_torch.ops import flash_attention as fa, winograd as wg
+    from minddiffusion_tpu_torch.ops import flash_attention as fa, glide_tail, winograd as wg
 
     return {"packed_attention": fa.flash_attention_packed,
             "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
-            "winograd_gathered": wg.conv3x3_winograd_gathered}
+            "winograd_gathered": wg.conv3x3_winograd_gathered,
+            "glide_tail": glide_tail.tail_step}
 
 
 def reset_counts() -> None:
@@ -300,9 +326,9 @@ def read_counts() -> dict:
 # convs that land at 16^2 and 32^2. The VAE decode adds one K1 launch (its
 # mid attention at 64^2); its convs run at 64^2 and above, outside the gate.
 PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0,
-                 "winograd_gathered": 0}
+                 "winograd_gathered": 0, "glide_tail": 0}
 PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0,
-              "winograd_gathered": 0}
+              "winograd_gathered": 0, "glide_tail": 0}
 
 
 def sd2_models(gen: torch.Generator):
@@ -739,6 +765,218 @@ def phase13() -> dict:
     return counts
 
 
+# Launches of the GLIDE cascade, counted by hand from GlideUNetConfig.base_64
+# and upsample_256 (model_channels 192, head_ch 64), not from the port's
+# gates. Attention: each site has Nk = Nq + 128 (the text tokens first). The
+# base model attends at ds 2, 4, 8 and the middle; only ds2 (32^2: Nq 1024,
+# Nk 1152, C 384) passes the 1024 / 512 token gates and, with block_q 1024,
+# the footprint rule -> K1 at its 3 down and 4 up sites; ds4 (256 tokens),
+# ds8 and the middle run einsum. The super-res model attends at ds 8, 16, 32
+# and the middle: ds8 is its 32^2 level (Nq 1024, C 384) -> K1 at 2 down and
+# 3 up sites. The xf's 128 tokens run einsum. Winograd (K2): stride-1 3x3
+# convs with C_in >= 512 at 32^2 and 16^2. Base: at 16^2 the conv_out of
+# down_2_0 and both convs of down_2_1, down_2_2 (5); both convs of the up
+# resblock up_3_us (its conv_in runs after the 2x upsample, C_in 768) (2);
+# both convs of up_2_0..3 (8); both of up_2_us, landing at 32^2 with C_in
+# 576 (2); the conv_in of up_1_0..3 (C_in 960, 768, 768, 576; their conv_out
+# has 384) (4): 21. Super-res: down_4_0's conv_out and both convs of down_4_1
+# at 16^2 (3); both of up_5_us (2), of up_4_0..2 (6) and of up_4_us (2); the
+# conv_in of up_3_0..2 at 32^2 (C_in 1152, 768, 768) (3): 16. The base runs
+# 60 evals ("60" respacing), the super-res 27 ("fast27"); the SRGAN has no
+# kernel site.
+GLIDE_PER_EVAL = {"base": {"packed_attention": 7, "winograd": 21},
+                  "super_res": {"packed_attention": 5, "winograd": 16}}
+GLIDE_STEPS = {"base": 60, "super_res": 27}
+GLIDE_BATCH, GLIDE_TEXT_LEN = 8, 12
+TAIL_STEP = 13            # the super-res sampler step K9 is held at (of 27)
+
+
+def glide_models():
+    from minddiffusion_tpu_torch.pipelines.glide_cascade import GlideModels
+
+    return GlideModels.create(dtype=torch.bfloat16, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(6))
+
+
+def glide_tokens(batch: int, ctx: int, vocab: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """A prompt of GLIDE_TEXT_LEN ids on every row, padded with the end
+    token (vocab - 1), and its mask."""
+    tokens = torch.full((batch, ctx), vocab - 1, dtype=torch.long, device="cuda")
+    tokens[:, :GLIDE_TEXT_LEN] = torch.arange(101, 101 + GLIDE_TEXT_LEN, device="cuda")
+    mask = torch.zeros_like(tokens)
+    mask[:, :GLIDE_TEXT_LEN] = 1
+    return tokens, mask
+
+
+def phase14(models, gen: torch.Generator) -> None:
+    """One full-width GLIDE base eval (CFG batch 16, 64x64) and one super-res
+    eval (batch 8, 256x256, with a 64x64 low-res input), bf16, random weights
+    with no zero-init, on the kernel path vs the plain path."""
+    from minddiffusion_tpu_torch import ops
+
+    xf = models.base.xf_config
+    for stage, net, b, size in (("base", models.base, 2 * GLIDE_BATCH, 64),
+                                ("super_res", models.super_res, GLIDE_BATCH, 256)):
+        tokens, mask = glide_tokens(b, xf.text_ctx, xf.n_vocab)
+        x = torch.randn(b, size, size, 3, generator=gen, device="cuda")
+        t = torch.linspace(1, 999, b, device="cuda").round().long()
+        low = (torch.rand(b, 64, 64, 3, generator=gen, device="cuda") * 2 - 1,) \
+            if stage == "super_res" else ()
+        with torch.inference_mode(), net.hoisted_winograd():
+            xf_proj, xf_out = net.encode_text(tokens, mask)
+            call = lambda: net.denoise(x, t, *low, xf_proj, xf_out)  # noqa: E731
+            reset_counts()
+            eps_k, v_k = call()
+            counts = read_counts()
+            with ops.plain_reference():
+                eps_p, _ = call()
+            torch.cuda.synchronize()
+            ms = cuda_ms(call, runs=5)
+            with ops.plain_reference():
+                plain_ms = cuda_ms(call, runs=3)
+        expected = {k: GLIDE_PER_EVAL[stage].get(k, 0) for k in KERNELS}
+        assert counts == expected, (stage, counts, expected)
+        assert eps_k.shape == v_k.shape == (b, size, size, 3)
+        assert torch.isfinite(eps_k).all() and torch.isfinite(v_k).all(), stage
+        rel_l2 = ((eps_k - eps_p).norm() / eps_p.norm()).item()
+        log(f"[phase 14] unet glide {stage} B={b} {size}x{size} bf16 launches={counts} "
+            f"rel_l2={rel_l2:.3e} eps_rms={eps_p.pow(2).mean().sqrt().item():.4f} "
+            f"kernel_path_ms={ms:.3f} plain_path_ms={plain_ms:.3f}")
+        assert rel_l2 <= REL_TOL, (stage, rel_l2)
+    torch.cuda.empty_cache()
+
+
+def phase15(models) -> "tuple[dict, torch.Tensor]":
+    """The GLIDE cascade at the JAX package's defaults, batch 8, and a rerun
+    with the same seed. Returns the launch counts and the base images."""
+    from minddiffusion_tpu_torch.pipelines.glide_cascade import GlideCascadePipeline
+
+    b, xf = GLIDE_BATCH, models.base.xf_config
+    assert (models.base_schedule.num_timesteps, models.sr_schedule.num_timesteps) == (
+        GLIDE_STEPS["base"], GLIDE_STEPS["super_res"])
+    fn = GlideCascadePipeline(models).build_generate(batch_size=b)
+    tokens, mask = glide_tokens(b, xf.text_ctx, xf.n_vocab)
+    run = lambda timings=None: fn(  # noqa: E731
+        models, tokens, mask, torch.Generator(device="cuda").manual_seed(13), timings=timings)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out1, first_s = timed(run)
+    counts = read_counts()
+    stage_s: dict = {}
+    out2, batch_s = timed(lambda: run(stage_s))
+    expected = {k: sum(GLIDE_PER_EVAL[st].get(k, 0) * n for st, n in GLIDE_STEPS.items())
+                for k in KERNELS}
+    assert counts == expected, (counts, expected)
+    for stage, side in (("base", 64), ("super_res", 256), ("srgan", 1024)):
+        img = out1[stage]
+        assert img.shape == (b, side, side, 3) and img.dtype == torch.uint8, (stage, img.shape)
+        assert torch.equal(img, out2[stage]), f"{stage}: same seed gave different images"
+        assert img.float().std().item() > 1.0, f"{stage}: degenerate image"
+    log(f"[phase 15] glide_cascade_b{b} launches={counts} expected={expected} "
+        f"first_run_s={first_s:.3f} s_per_batch={batch_s:.3f} img_per_s={b / batch_s:.4f} "
+        + " ".join(f"{k}_s={v:.3f}" for k, v in stage_s.items())
+        + f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return counts, out1["base"]
+
+
+def tail_bound(bh: int, h: int, w: int, c: int, co: int, bx: int) -> "tuple[float, str]":
+    """K9's bound: the bf16 products of the 3x3 conv to co channels (its
+    inputs are bf16) against reading h, x, the affine, the weights and the
+    step coefficients once and writing x_{t-1} once."""
+    return bound(2.0 * 9 * c * co * bh * h * w,
+                 2.0 * bh * h * w * c + 8.0 * bx * h * w * co + 8.0 * bh * c
+                 + 4.0 * (9 * c * co + co + 4))
+
+
+def phase16(models, img64_u8: torch.Tensor, gen: torch.Generator, table: dict) -> None:
+    """K9 in "glide" mode on the out_norm input of the super-res UNet at
+    sampler step TAIL_STEP of a full super-res run (batch 8, 256 px), with
+    that step's DDIM coefficients, against its plain version and the port's
+    own unfused step; in "sd" mode on seeded features at the SD2 main-path
+    shape (CFG batch 16, 64x64, C 320 -> 4) with a DDIM-50 step's
+    coefficients and guidance 9.0. Beside each: the unfused chain on the same
+    inputs (the GN affine + SiLU from the same mult / add, cuDNN's conv to
+    the eps channels, the sampler step from the same coefficients)."""
+    from minddiffusion_tpu_torch.core.schedules import DiffusionSchedule, make_ddim_timesteps
+    from minddiffusion_tpu_torch.ops import glide_tail as gt
+    from minddiffusion_tpu_torch.pipelines.glide_cascade import GlideCascadePipeline
+
+    b, xf = GLIDE_BATCH, models.base.xf_config
+    tokens, mask = glide_tokens(b, xf.text_ctx, xf.n_vocab)
+    fn = GlideCascadePipeline(models).build_generate(batch_size=b)
+    with gt.sr_tail_probe(models.super_res.unet, models.sr_schedule, TAIL_STEP) as probe:
+        fn.sr_stage(models, img64_u8.float() / 127.5 - 1.0, tokens, mask, gen, None)
+    args = [probe[k] for k in ("h", "x", "mult", "add", "w_eps", "b_eps", "coefs")]
+    w_g = args[4].permute(3, 2, 0, 1).to(torch.bfloat16)
+    b_g = args[5].to(torch.bfloat16)
+    sr, srm1, sap, s1map = (float(v) for v in args[6])
+
+    def glide_unfused():
+        hh, x, mult, add = args[:4]
+        xn = F.silu(hh.float() * mult[:, None, None] + add[:, None, None]).to(torch.bfloat16)
+        eps = F.conv2d(xn.permute(0, 3, 1, 2), w_g, b_g, padding=1).permute(0, 2, 3, 1)
+        px0 = (sr * x - srm1 * eps.float()).clamp(-1.0, 1.0)
+        return sap * px0 + s1map * ((sr * x - px0) / srm1)
+
+    # "sd": CFG batch [uncond; cond] of the SD2 main path at a DDIM-50 step
+    bh, hw, c, co = 16, 64, 320, 4
+    sd = DiffusionSchedule.create()
+    ts = make_ddim_timesteps(50, sd.num_timesteps)
+    a_t, a_prev = (float(sd.alphas_cumprod[int(i)]) for i in (ts[25], ts[24]))
+    c_x = (a_prev / a_t) ** 0.5
+    c_eps = (1 - a_prev) ** 0.5 - (a_prev * (1 - a_t) / a_t) ** 0.5
+    h = torch.randn(bh, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+    sd_args = [h, torch.randn(bh // 2, hw, hw, co, generator=gen, device="cuda"),
+               1.0 + 0.1 * torch.randn(bh, c, generator=gen, device="cuda"),
+               0.1 * torch.randn(bh, c, generator=gen, device="cuda"),
+               torch.randn(3, 3, c, co, generator=gen, device="cuda") * (9 * c) ** -0.5,
+               0.1 * torch.randn(co, generator=gen, device="cuda"),
+               torch.tensor([9.0, c_x, c_eps, 0.0], device="cuda")]
+    w_sd = sd_args[4].permute(3, 2, 0, 1).to(torch.bfloat16)
+    b_sd = sd_args[5].to(torch.bfloat16)
+
+    def sd_unfused():
+        hh, x, mult, add = sd_args[:4]
+        xn = F.silu(hh.float() * mult[:, None, None] + add[:, None, None]).to(torch.bfloat16)
+        eps = F.conv2d(xn.permute(0, 3, 1, 2), w_sd, b_sd, padding=1).permute(0, 2, 3, 1)
+        u, cond = eps.float().chunk(2)
+        return c_x * x + c_eps * (u + 9.0 * (cond - u))
+
+    rec = table["glide_tail"]
+    with torch.inference_mode():
+        for label, mode, a, unfused in (("glide_sr_256", "glide", args, glide_unfused),
+                                        ("sd_cfg_64x64", "sd", sd_args, sd_unfused)):
+            ref = gt.PLAIN[mode](*a)
+            got = gt.tail_step(*a, mode=mode)
+            chain = unfused()
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all() and got.shape == a[1].shape, label
+            abs_err, err = errors(got, ref)
+            _, err_chain = errors(got, chain)
+            ms = cuda_ms(lambda: gt.tail_step(*a, mode=mode))
+            plain_ms = cuda_ms(lambda: gt.PLAIN[mode](*a), runs=5)
+            unfused_ms = cuda_ms(unfused, runs=5)
+            nb, hh, ww, cc = a[0].shape
+            bound_ms, bound_by = tail_bound(nb, hh, ww, cc, a[4].shape[-1], a[1].shape[0])
+            extra = ""
+            if mode == "glide":
+                _, err_port = errors(got, probe["x_prev"])
+                _, err_chain_port = errors(chain, probe["x_prev"])
+                extra = (f" rel_err_vs_port_step={err_port:.3e}"
+                         f" unfused_vs_port_step={err_chain_port:.3e}")
+                assert err_port <= REL_TOL, (label, err_port)
+            log(f"[phase 16] glide_tail {label} mode={mode} h={tuple(a[0].shape)} "
+                f"co={a[4].shape[-1]} max_abs_err={abs_err:.3e} rel_err={err:.3e} "
+                f"rel_err_vs_unfused={err_chain:.3e}{extra} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} unfused_chain_ms={unfused_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by})")
+            assert err <= REL_TOL and err_chain <= REL_TOL, (label, err, err_chain)
+            rec["cases"].append(dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
+                                     plain_ms=plain_ms, library_ms=None,
+                                     unfused_ms=unfused_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -760,6 +998,9 @@ def main() -> int:
         "winograd_gathered": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/winograd.cu",
             replaces="minddiffusion_tpu/ops/winograd.py:494", cases=[]),
+        "glide_tail": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/glide_tail.cu",
+            replaces="benchmarks/research/glide_tail.py:282", cases=[], held_in_phase=16),
     }
     name = phase0()
     phase1()
@@ -778,14 +1019,23 @@ def main() -> int:
     phase11(gen)
     by_path["wukong_txt2img_512_dpm15_b4"] = phase12()
     by_path["wukong_inpaint_512_plms50_b4_dma0"] = phase13()
+    glide = glide_models()
+    phase14(glide, gen)
+    by_path["glide_cascade_b8"], img64 = phase15(glide)
+    phase16(glide, img64, gen, table)
+    del glide
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
         runs = {p: counts[kname] for p, counts in by_path.items()}
         # launches: on the first path that runs the kernel (the 512^2 main
-        # path for K1 and K2, the 768x1024 path for K4, path B for K3);
-        # every path's count is in launches_by_path, and each was checked above
-        launches = next(n for n in runs.values() if n)
+        # path for K1 and K2, the 768x1024 path for K4, path B for K3; 0 for
+        # K9, which no path runs and `held_in_phase` holds); every path's
+        # count is in launches_by_path, and each was checked above
+        launches = next((n for n in runs.values() if n), 0)
+        extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
+        if "unfused_ms" in main_case:
+            extra["unfused_ms"] = main_case["unfused_ms"]
         kernels.append(dict(
             name=kname, route=rec["route"], source=rec["source"],
             replaces=rec["replaces"], launches=launches,
@@ -795,7 +1045,7 @@ def main() -> int:
             library_ms=main_case["library_ms"], case=main_case["case"],
             bound_term=main_case.get("bound_term", "mma" if main_case["bound_by"]
                                      == "operations" else "bytes"),
-            launches_by_path=runs))
+            launches_by_path=runs, **extra))
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

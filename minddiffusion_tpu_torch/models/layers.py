@@ -11,6 +11,7 @@ prologue, on the host before K3's gather, elementwise elsewhere.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -190,6 +191,26 @@ class Conv1x1(nn.Module):
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """NHWC nearest-neighbour 2x upsample."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC 2x2 average pool, stride 2 (flax `nn.avg_pool`, VALID)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def hoisted_winograd(module: nn.Module):
+    """Keep the Winograd transform U of every Winograd-routed stride-1
+    conv of `module` from its first call on, for a whole sampling run,
+    instead of computing it in every conv call."""
+    convs = [m for m in module.modules() if isinstance(m, Conv3x3) and m.stride == 1]
+    for m in convs:
+        m.wino_cache = {}
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.wino_cache = None
 
 
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -8,11 +8,15 @@ context (B, L, context_dim); eps comes back fp32.
 ResBlock: GN -> SiLU -> conv_in; + emb; GN -> SiLU -> conv_out; + skip.
 Both GN+SiLU run as a per-(batch, channel) affine (GroupNorm32.affine) fed
 to the 3x3 conv dispatch, so at the Winograd-gated shapes they are the
-kernel's prologue; the embedding add is folded into the second affine.
+kernel's prologue; the embedding add is folded into the second affine. The
+GLIDE (ADM) forms: `use_scale_shift_norm` splits the embedding projection
+into (scale, shift) and feeds GN(h) (1 + scale) + shift to conv_out as the
+affine (m0 (1 + scale), a0 (1 + scale) + shift); `up` / `down` normalize
+first, then resample h and x (nearest 2x / 2x2 average), then run conv_in
+with no prologue.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -22,7 +26,8 @@ from torch import nn
 
 from minddiffusion_tpu_torch.models.attention import SpatialTransformer
 from minddiffusion_tpu_torch.models.layers import (
-    Conv1x1, Conv3x3, GroupNorm32, nearest_upsample_2x, timestep_embedding)
+    Conv1x1, Conv3x3, GroupNorm32, avg_pool_2x, hoisted_winograd,
+    nearest_upsample_2x, timestep_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +71,17 @@ class UNetConfig:
 
 
 class ResBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
+                 use_scale_shift_norm: bool = False, up: bool = False,
+                 down: bool = False):
         super().__init__()
+        if up and down:
+            raise ValueError("a ResBlock resamples up or down, not both")
+        self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
         self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(),
                                        Conv3x3(in_ch, out_ch))
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_dim, out_ch))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), nn.Linear(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch))
         self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(),
                                         nn.Identity(), Conv3x3(out_ch, out_ch))
         self.skip_connection = (Conv1x1(in_ch, out_ch) if in_ch != out_ch
@@ -78,10 +89,21 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         norm_in, conv_in = self.in_layers[0], self.in_layers[2]
-        h = conv_in(x, gn=norm_in.affine(x))
+        if self.up or self.down:
+            resample = nearest_upsample_2x if self.up else avg_pool_2x
+            h = conv_in(resample(F.silu(norm_in(x))))
+            x = resample(x)
+        else:
+            h = conv_in(x, gn=norm_in.affine(x))
         e = self.emb_layers(emb)
         norm_out, conv_out = self.out_layers[0], self.out_layers[3]
-        h = conv_out(h, gn=norm_out.affine(h, emb=e))
+        if self.use_scale_shift_norm:
+            scale, shift = e.float().chunk(2, dim=-1)
+            m0, a0 = norm_out.affine(h)
+            gn = (m0 * (1.0 + scale), a0 * (1.0 + scale) + shift)
+        else:
+            gn = norm_out.affine(h, emb=e)
+        h = conv_out(h, gn=gn)
         return self.skip_connection(x) + h
 
 
@@ -177,17 +199,7 @@ class UNetModel(nn.Module):
         h = self.out[2](F.silu(self.out[0](h)))
         return h.float()
 
-    @contextlib.contextmanager
     def hoisted_winograd(self):
         """Keep the Winograd transform U of every Winograd-routed conv from
-        its first call on, for a whole sampling run, instead of computing it
-        in every conv call."""
-        convs = [m for m in self.modules()
-                 if isinstance(m, Conv3x3) and m.stride == 1]
-        for m in convs:
-            m.wino_cache = {}
-        try:
-            yield
-        finally:
-            for m in convs:
-                m.wino_cache = None
+        its first call on, for a whole sampling run (layers.hoisted_winograd)."""
+        return hoisted_winograd(self)

@@ -4,9 +4,10 @@ Port of minddiffusion_tpu/ops/attention.py, with the reference's full route:
 
   * `packed_attention` on (B, N, C = heads * D) sends a site to the packed
     kernel K1 (`flash_attention_packed`) in the caller's softmax mode when
-    `packed_route` takes it: nq >= 1024, nk >= 512, nk % 128 == 0 and the
-    reference's VMEM footprint rule. Every other site goes to
-    `dot_product_attention`, in exact mode also under attn_impl="fast".
+    `packed_route` takes it: nq >= 1024, nk >= 512 (both `min_q` where the
+    caller gives it), nk % 128 == 0 and the reference's VMEM footprint rule
+    (with the caller's `block_q` hint where it fits). Every other site goes
+    to `dot_product_attention`, in exact mode also under attn_impl="fast".
   * `dot_product_attention` on (B, N, H, D) sends a site with no bias,
     nq >= 1024 and nk >= 512 to the head-split kernel K4 (`flash_attention`)
     in exact mode; every other site runs `einsum_attention`.
@@ -73,21 +74,34 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return einsum_attention(q, k, v, scale=scale, bias=bias)
 
 
-def packed_route(nq: int, nk: int, c: int) -> bool:
-    """Whether the reference sends a packed site to K1: the token gates, then
-    the footprint rule nk*C*2*2 + bq*C*6 <= 12 MiB (K/V double-buffered in
+def packed_route(nq: int, nk: int, c: int, block_q: Optional[int] = None,
+                 min_q: Optional[int] = None) -> bool:
+    """Whether the reference sends a packed site to K1: the token gates
+    (`min_q` replaces both the 1024 on nq and the 512 on nk), then the
+    footprint rule nk*C*2*2 + bq*C*6 <= 12 MiB (K/V double-buffered in
     bf16, q/out tiles), with bq = 256 when a 256 x nk fp32 score tile fits
-    6 MiB, else 128."""
-    if nq < MIN_Q_TOKENS or nk < MIN_K_TOKENS or nk % 128:
+    6 MiB, else 128. The hint `block_q`, rounded down to a multiple of 128
+    and cut to nq, replaces bq when it divides nq and its bq x nk fp32
+    score tile fits 6 MiB (JAX `ops/attention.py` `packed_attention`).
+    The kernel tiles q its own way; bq only enters the rule."""
+    gate_q = min_q if min_q is not None else MIN_Q_TOKENS
+    gate_k = min_q if min_q is not None else MIN_K_TOKENS
+    if nq < gate_q or nk < gate_k or nk % 128:
         return False
     bq = 256 if 256 * nk * 4 <= SCORE_TILE_BUDGET else 128
+    if block_q:
+        cand = min(block_q - block_q % 128, nq)
+        if cand >= 128 and nq % cand == 0 and cand * nk * 4 <= SCORE_TILE_BUDGET:
+            bq = cand
     return nk * c * 2 * 2 + bq * c * 6 <= PACKED_VMEM_BUDGET
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int, scale: Optional[float] = None,
-                     impl: Optional[str] = None) -> torch.Tensor:
-    """Attention on packed (B, N, C) tensors along the reference's route."""
+                     impl: Optional[str] = None, block_q: Optional[int] = None,
+                     min_q: Optional[int] = None) -> torch.Tensor:
+    """Attention on packed (B, N, C) tensors along the reference's route
+    (`block_q`, `min_q`: the route hints of `packed_route`)."""
     if impl not in (None, "fast"):
         raise ValueError(f"unknown attn_impl {impl!r}")
     b, nq, c = q.shape
@@ -95,7 +109,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = c // heads
     if scale is None:
         scale = d ** -0.5
-    if packed_route(nq, nk, c):
+    if packed_route(nq, nk, c, block_q, min_q):
         exact = impl != "fast"
         if ops.plain_active():
             return flash_attention.packed_attention_plain(q, k, v, heads, scale,

@@ -1,22 +1,32 @@
-"""The port's copy of the Winograd tuning flag of minddiffusion_tpu/utils/flags.py.
+"""The port's copy of two tuning flags of minddiffusion_tpu/utils/flags.py.
 
     MDT_WINO_TUNE=...   comma k=v conv-kernel tuning: hmax=<int>, cmin=<int>
                         (the Winograd shape gate's ceiling on min(H, W) and
                         floor on C_in), dma=0 (the gathered-tile kernel K3
                         instead of K2, which reads its own halo), chain=0
+    MDT_GLIDE_TUNE=...  comma k=v GLIDE tuning: attn_route=<int> (GLIDE's
+                        attention sites take the packed kernel K1 from this
+                        many query and key tokens on, instead of the
+                        1024 / 512 gates)
 
 `chain` is accepted with the JAX package's grammar and switches nothing:
-merged resblock chaining is a TPU-only rewrite the port does not have.
+merged resblock chaining is a TPU-only rewrite the port does not have. The
+JAX package's GLIDE keys `s2d` (the space-to-depth SRGAN tail) and
+`skip_join` (the split / barrier skip joins) raise: those TPU-only
+rewrites are not in the port either.
 
-The snapshot is rebuilt only when MDT_WINO_TUNE changes, so a sampling loop
-sees one constant object while tests that monkeypatch the variable see
-their change. Model code reads `flags()`, never the environment.
+The snapshot is rebuilt only when one of the variables changes, so a
+sampling loop sees one constant object while tests that monkeypatch a
+variable see their change. Model code reads `flags()`, never the
+environment.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from typing import Optional, Tuple
+
+_KEYS = ("MDT_WINO_TUNE", "MDT_GLIDE_TUNE")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,42 +35,62 @@ class Flags:
     wino_chain: bool = True
     wino_hmax: Optional[int] = None
     wino_cmin: Optional[int] = None
+    glide_attn_route: Optional[int] = None
 
 
-def parse_wino_tune(raw: str) -> dict:
-    """'hmax=64,cmin=320,dma=0,chain=0' -> field overrides; a malformed entry
-    raises a ValueError naming the syntax, as the JAX package's does."""
-    out: dict = {}
+def _entries(raw: str, var: str, keys: str, example: str):
+    """(key, value) of each k=v entry of `raw`; a malformed one raises a
+    ValueError naming the syntax, as the JAX package's does."""
     for part in raw.split(","):
         part = part.strip()
         if not part:
             continue
         if "=" not in part:
-            raise ValueError(
-                f"MDT_WINO_TUNE entry {part!r}: expected k=v with k in "
-                "{hmax,cmin,dma,chain} (e.g. 'hmax=64,cmin=320,dma=0')")
+            raise ValueError(f"{var} entry {part!r}: expected k=v with k in "
+                             f"{{{keys}}} (e.g. '{example}')")
         k, v = part.split("=", 1)
-        k = k.strip()
+        yield k.strip(), v.strip()
+
+
+def parse_wino_tune(raw: str) -> dict:
+    """'hmax=64,cmin=320,dma=0,chain=0' -> field overrides."""
+    out: dict = {}
+    for k, v in _entries(raw, "MDT_WINO_TUNE", "hmax,cmin,dma,chain",
+                         "hmax=64,cmin=320,dma=0"):
         if k in ("hmax", "cmin"):
             out[f"wino_{k}"] = int(v)
         elif k == "dma":
-            out["wino_dma"] = v.strip() != "0"
+            out["wino_dma"] = v != "0"
         elif k == "chain":
-            out["wino_chain"] = v.strip() != "0"
+            out["wino_chain"] = v != "0"
         else:
-            raise ValueError(
-                f"MDT_WINO_TUNE key {k!r}: expected one of "
-                "hmax/cmin/dma/chain")
+            raise ValueError(f"MDT_WINO_TUNE key {k!r}: expected one of "
+                             "hmax/cmin/dma/chain")
     return out
 
 
-_cache: Tuple[Optional[str], Flags] = (None, Flags())
+def parse_glide_tune(raw: str) -> dict:
+    """'attn_route=256' -> field overrides."""
+    out: dict = {}
+    for k, v in _entries(raw, "MDT_GLIDE_TUNE", "attn_route", "attn_route=256"):
+        if k == "attn_route":
+            out["glide_attn_route"] = int(v)
+        elif k in ("s2d", "skip_join"):
+            raise ValueError(f"MDT_GLIDE_TUNE key {k!r}: the port has no such rewrite "
+                             "(the SRGAN space-to-depth tail and the split / barrier "
+                             "skip joins are TPU-only); only attn_route is accepted")
+        else:
+            raise ValueError(f"MDT_GLIDE_TUNE key {k!r}: expected attn_route")
+    return out
+
+
+_cache: Tuple[Optional[tuple], Flags] = (None, Flags())
 
 
 def flags() -> Flags:
-    """The current flag snapshot (rebuilt only when MDT_WINO_TUNE changed)."""
+    """The current flag snapshot (rebuilt only when a variable changed)."""
     global _cache
-    raw = os.environ.get("MDT_WINO_TUNE", "")
-    if _cache[0] != raw:
-        _cache = (raw, Flags(**parse_wino_tune(raw)))
+    key = tuple(os.environ.get(k, "") for k in _KEYS)
+    if _cache[0] != key:
+        _cache = (key, Flags(**parse_wino_tune(key[0]), **parse_glide_tune(key[1])))
     return _cache[1]

@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's main path goes, on one CUDA card.
 
     python3 scripts/profile_torch_main_path.py [--out output/profile_torch_main_path.txt]
-        [--family sd2|wukong] [--height 512 --width 512 --batch 8]
+        [--family sd2|wukong|glide] [--height 512 --width 512 --batch 8]
 
 SD2 (raw-exp softmax at the packed-attention sites, as the main path) or
 Wukong-Huahua (SD1 UNet, zh CLIP; exact softmax) at full width with seeded
@@ -13,7 +13,16 @@ VAE decode and one VAE encode (CUDA events, median after warm-up); the wall
 ms and the summed device kernel ms of a UNet eval under torch.profiler
 (their gap is the share of the eval the card idles); and the Winograd
 kernels (K2, and K3 on gathered tiles) against cuDNN's conv (F.conv2d,
-channels-last) at five of their gated sites. The profiler's per-op table goes to `--out`. Imports nothing of JAX.
+channels-last) at five of their gated sites. The profiler's per-op table goes to `--out`.
+
+`--family glide` profiles the Taichu-GLIDE cascade at the JAX package's
+defaults (64 px base, 60 ancestral steps, guidance 5.0; 256 px "fast27"
+super-res; SRGAN x4 in fp32) at `--batch` (the size flags are not read):
+seconds per stage of one cascade (host clock, the device synchronised at
+each stage boundary), the ms of one xf encode, one base eval (CFG batch
+2B), one super-res eval and one SRGAN call (CUDA events), and for the whole
+cascade and each eval kind the wall ms against the summed device kernel ms
+under torch.profiler. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -50,26 +59,102 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def profiled(fn, runs: int = 1):
+    """(wall ms per run, summed device kernel ms per run, the profiler's
+    key averages) of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    averages = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in averages        # kernel rows only
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation) / 1e3 / runs
+    return wall_ms, device_ms, averages
+
+
+def write_table(path: str, title: str, averages, mode: str = "w") -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, mode) as f:
+        f.write(title + "\n")
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=30) + "\n")
+
+
+def profile_glide(args) -> None:
+    from minddiffusion_tpu_torch.pipelines.glide_cascade import (
+        GlideCascadePipeline, GlideModels)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    models = GlideModels.create(dtype=torch.bfloat16, device="cuda", generator=gen)
+    b, xf = args.batch, models.base.xf_config
+    tokens = torch.full((b, xf.text_ctx), xf.n_vocab - 1, dtype=torch.long, device="cuda")
+    tokens[:, :12] = torch.arange(101, 113, device="cuda")
+    mask = (tokens != xf.n_vocab - 1).long()
+    fn = GlideCascadePipeline(models).build_generate(batch_size=b)
+    run = lambda timings=None: fn(models, tokens, mask,  # noqa: E731
+                                  torch.Generator(device="cuda").manual_seed(1), timings=timings)
+    print(f"glide cascade batch {b} (base CFG batch {2 * b})")
+    run()
+    stages: dict = {}
+    t0 = time.perf_counter()
+    run(stages)
+    total_s = time.perf_counter() - t0
+    print(f"cascade_s={total_s:.3f} " + " ".join(f"{k}_s={v:.3f}" for k, v in stages.items()))
+    x64 = torch.randn(2 * b, 64, 64, 3, generator=gen, device="cuda")
+    x256 = torch.randn(b, 256, 256, 3, generator=gen, device="cuda")
+    low = torch.rand(b, 64, 64, 3, generator=gen, device="cuda") * 2 - 1
+    t = torch.full((1,), 501, device="cuda")
+    base, sr = models.base, models.super_res
+    with torch.inference_mode(), base.hoisted_winograd(), sr.hoisted_winograd():
+        xp2, xo2 = base.encode_text(torch.cat([tokens, tokens]), torch.cat([mask, mask]))
+        xp, xo = sr.encode_text(tokens, mask)
+        evals = {"base": lambda: base.denoise(x64, t, xp2, xo2),
+                 "super_res": lambda: sr.denoise(x256, t, low, xp, xo),
+                 "srgan": lambda: models.srgan(x256.clamp(-1, 1))}
+        xf_ms = cuda_ms(lambda: base.encode_text(torch.cat([tokens, tokens]),
+                                                 torch.cat([mask, mask])))
+        ms = {k: cuda_ms(f, runs=3) for k, f in evals.items()}
+        print(f"xf_encode_B{2 * b}_ms={xf_ms:.3f} base_eval_B{2 * b}_ms={ms['base']:.3f} "
+              f"super_res_eval_B{b}_ms={ms['super_res']:.3f} srgan_B{b}_ms={ms['srgan']:.3f}")
+        wall, dev, averages = profiled(run)
+        print(f"profiled cascade: wall_ms={wall:.3f} device_kernel_ms={dev:.3f} "
+              f"idle_share={1 - dev / wall:.3f}")
+        write_table(args.out, f"per-op totals over one GLIDE cascade (batch {b})", averages)
+        for name, f in evals.items():
+            wall, dev, averages = profiled(f, PROFILED_EVALS)
+            print(f"profiled {name} eval: wall_ms={wall:.3f} device_kernel_ms={dev:.3f} "
+                  f"idle_share={1 - dev / wall:.3f}")
+            write_table(args.out, f"per-op totals over {PROFILED_EVALS} {name} calls",
+                        averages, mode="a")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="output/profile_torch_main_path.txt")
     parser.add_argument("--height", type=int, default=512)
     parser.add_argument("--width", type=int, default=512)
     parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--family", choices=["sd2", "wukong"], default="sd2")
+    parser.add_argument("--family", choices=["sd2", "wukong", "glide"], default="sd2")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from minddiffusion_tpu_torch.ops import winograd
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.family == "glide":
+        profile_glide(args)
+        print(f"per-op table: {args.out}")
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     models = SDModels.create(family=args.family, dtype=torch.bfloat16,
                              attn_impl="fast" if args.family == "sd2" else None,
@@ -91,25 +176,11 @@ def main() -> int:
         enc_ms = cuda_ms(lambda: models.vae.encode(img), runs=3)
         print(f"text_encoder_B{2 * b}_ms={text_ms:.3f} unet_eval_B{2 * b}_ms={unet_ms:.3f} "
               f"vae_decode_B{b}_ms={vae_ms:.3f} vae_encode_B{b}_ms={enc_ms:.3f}")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_EVALS):
-                unet(x, t, ctx)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_EVALS
-    averages = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in averages        # kernel rows only
-                    if e.device_type == DeviceType.CUDA
-                    and not e.is_user_annotation) / 1e3 / PROFILED_EVALS
+        wall_ms, device_ms, averages = profiled(lambda: unet(x, t, ctx), PROFILED_EVALS)
     print(f"profiled unet eval: wall_ms={wall_ms:.3f} device_kernel_ms={device_ms:.3f} "
           f"idle_share={1 - device_ms / wall_ms:.3f}")
-    table = averages.table(sort_by="self_cuda_time_total", row_limit=30)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        f.write(f"per-op totals over {PROFILED_EVALS} UNet evals (CFG batch {2 * b}, "
-                f"{h8}x{w8} latents)\n")
-        f.write(table + "\n")
+    write_table(args.out, f"per-op totals over {PROFILED_EVALS} UNet evals (CFG batch {2 * b}, "
+                f"{h8}x{w8} latents)", averages)
     del models, unet
     torch.cuda.empty_cache()
 

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from minddiffusion_tpu_torch.models.layers import conv3x3_dispatch
-from minddiffusion_tpu_torch.ops import attention, flash_attention, winograd
+from minddiffusion_tpu_torch.ops import attention, flash_attention, glide_tail, winograd
 
 
 @pytest.fixture
@@ -170,3 +170,55 @@ def test_gated_sites_raise_on_cuda_inputs_the_kernels_do_not_take(cuda):
     odd = torch.randn(1, 1024, 8 * 48, generator=g, device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):   # D 48 is no SD width
         flash_attention.flash_attention_packed(odd, odd, odd, 8, 48 ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,c,heads", [(2, 1024, 1152, 384, 6), (1, 256, 384, 768, 12)])
+def test_packed_attention_kernel_at_the_glide_sites(cuda, b, nq, nk, c, heads):
+    """K1 with the 128 text keys of a GLIDE site in front of the spatial ones
+    (Nk = Nq + 128): the 32^2 sites, and the 16^2 tier of attn_route=256."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    scale = (c // heads) ** -0.5
+    ref = flash_attention.packed_attention_plain(q, k, v, heads, scale)
+    got = flash_attention.flash_attention_packed(q, k, v, heads, scale)
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,h,w,c,co", [
+    ("glide", 2, 32, 40, 192, 3), ("glide", 1, 17, 9, 64, 3),
+    ("sd", 4, 16, 24, 320, 4), ("sd", 2, 9, 33, 40, 3)])
+def test_glide_tail_kernel_matches_plain(cuda, mode, b, h, w, c, co):
+    """K9 in both modes, at ragged tile edges and a channel count that is not
+    a multiple of its 32-channel chunk."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    bx = b // 2 if mode == "sd" else b
+    args = [rand(b, h, w, c).to(torch.bfloat16), rand(bx, h, w, co), 1.0 + 0.2 * rand(b, c),
+            0.2 * rand(b, c), rand(3, 3, c, co) * (9 * c) ** -0.5, 0.1 * rand(co),
+            torch.tensor([1.7, 0.9, 0.8, 0.4] if mode == "glide" else [5.0, 1.02, -0.3, 0.0],
+                         device=cuda)]
+    before = glide_tail.tail_step.launches
+    got = glide_tail.tail_step(*args, mode=mode)
+    assert glide_tail.tail_step.launches == before + 1
+    ref = glide_tail.PLAIN[mode](*args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got - ref).abs().max() / ref.abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_glide_tail_raises_on_inputs_the_kernel_does_not_take(cuda):
+    args = [torch.zeros(2, 8, 8, 36, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(2, 8, 8, 3, device=cuda), torch.ones(2, 36, device=cuda),
+            torch.zeros(2, 36, device=cuda), torch.zeros(3, 3, 36, 3, device=cuda),
+            torch.zeros(3, device=cuda), torch.zeros(4, device=cuda)]
+    with pytest.raises(ValueError, match="C % 8"):           # C 36
+        glide_tail.tail_step(*args)
+    args[0] = torch.zeros(2, 8, 8, 36, device=cuda)
+    with pytest.raises(TypeError):                            # fp32 h
+        glide_tail.tail_step(*args)
