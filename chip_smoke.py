@@ -4,7 +4,7 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the CUDA sources of the five kernels from
+  1. build the six CUDA sources of the seven kernels from
      minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu), one
      nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
@@ -38,23 +38,42 @@ Phases (one line each; any failure raises and exits non-zero):
      unfused super-res step on features caught in a phase-15-sized SR run,
      and in its "sd" mode at the SD2 main-path shape, beside the unfused
      chain (GN+SiLU, cuDNN's conv, the sampler step). No path launches K9
-     (the JAX package retired its pipeline hook).
+     (the JAX package retired its pipeline hook);
+ 17. the channel-sums kernel (K6) vs its plain version at the UNet's
+     GroupNorm input shapes in both memory orders, beside the two torch
+     reductions (no single library call computes both sums); its VJP vs
+     autograd through the plain version; and (run
+     inside phase 19) vs GroupNorm32's sums on ResBlock inputs of a step;
+ 18. the fused LN -> GEGLU -> FF kernel (K5) vs its plain version at the SD2
+     transformer widths, beside the unfused bf16 chain, and vs the port's
+     own `x + ff(norm3(x))` on inputs caught in an SD2 UNet eval. Neither K5
+     nor K6 has a path (the JAX package removed their hooks);
+ 19. SD2 finetune 512^2, batch 3, fp32 master weights / bf16 compute: a
+     warm step, 3 timed steps (s/step, img/s, peak memory) with launch
+     counts (none in the backward), and the gradient check: the UNet
+     gradient of the kernel path within 5e-2 relative L2 of the plain path's,
+     and the same check with the gradient bridges taken out, which must fail;
+ 20. Wukong LoRA through cli/train.py (512^2, batch 3, 3 steps): only the
+     adapters move, the adapter checkpoint reloads, the merged model's eps
+     agrees; one DreamBooth step through the same CLI.
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
 The library calls are timing yardsticks only; the port never calls them.
 Each path runs with the launch counters set to 0 just before it and read
 just after, held against counts derived by hand from the SD2 and SD1
-configs. The line before the last is the kernel table as JSON; the last
+configs (for training: per step). The line before the last is the kernel table as JSON; the last
 line is the device record. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -65,9 +84,10 @@ import torch.nn.functional as F
 REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
 KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered",
-           "glide_tail")
+           "glide_tail", "channel_sums", "fused_ff")
 # csrc/<name>.cu; K2 and K3 share one
-SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail")
+SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail", "gn_stats",
+           "fused_ff")
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
@@ -255,7 +275,8 @@ WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
 # GN+SiLU prologue, where one cuDNN call computes the same function.
 MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plain",
              "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain",
-             "glide_tail": "glide_sr_256"}
+             "glide_tail": "glide_sr_256", "channel_sums": "16x64x64x320_bhwc",
+             "fused_ff": "ds1_16x4096x320"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -301,10 +322,13 @@ def wrappers() -> dict:
     """The launch-counting wrapper of each kernel."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa, glide_tail, winograd as wg
 
+    from minddiffusion_tpu_torch.ops import fused_ff, gn_stats
+
     return {"packed_attention": fa.flash_attention_packed,
             "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
             "winograd_gathered": wg.conv3x3_winograd_gathered,
-            "glide_tail": glide_tail.tail_step}
+            "glide_tail": glide_tail.tail_step, "channel_sums": gn_stats.channel_sums,
+            "fused_ff": fused_ff.fused_ln_geglu_ff}
 
 
 def reset_counts() -> None:
@@ -326,9 +350,9 @@ def read_counts() -> dict:
 # convs that land at 16^2 and 32^2. The VAE decode adds one K1 launch (its
 # mid attention at 64^2); its convs run at 64^2 and above, outside the gate.
 PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0,
-                 "winograd_gathered": 0, "glide_tail": 0}
+                 "winograd_gathered": 0, "glide_tail": 0, "channel_sums": 0, "fused_ff": 0}
 PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0,
-              "winograd_gathered": 0, "glide_tail": 0}
+              "winograd_gathered": 0, "glide_tail": 0, "channel_sums": 0, "fused_ff": 0}
 
 
 def sd2_models(gen: torch.Generator):
@@ -504,6 +528,14 @@ PATHS = {
          "winograd_gathered": 21},
         {"packed_attention": 2, "winograd": 0, "flash_attention": 0,
          "winograd_gathered": 0}, 51),
+    # Training at 512^2 (phases 19, 20): a step runs one UNet forward per
+    # loss (two for DreamBooth: train and reg) and one VAE encode per loss
+    # (its mid attention, K1); the backward recomputes einsum attention and
+    # the direct conv, so it launches no kernel. Per step: K1 11, K2 21; a
+    # DreamBooth step K1 22, K2 42.
+    "sd2_finetune_512_b3": (PER_UNET_EVAL, PER_DECODE, 1),
+    "wukong_lora_512_b3_3steps": (PER_UNET_EVAL, {"packed_attention": 3}, 3),
+    "wukong_dreambooth_512_b3_1step": (PER_UNET_EVAL, {"packed_attention": 2}, 2),
 }
 
 
@@ -977,6 +1009,413 @@ def phase16(models, img64_u8: torch.Tensor, gen: torch.Generator, table: dict) -
                                      bound_by=bound_by))
 
 
+GN_CASES = [(16, 64, 64, 320), (16, 32, 32, 640), (16, 16, 16, 1280), (3, 64, 64, 320)]
+
+
+def stats_bound(b: int, h: int, w: int, c: int) -> "tuple[float, str]":
+    """K6's bound: reading x once in bf16 and writing s1, s2 in fp32 (the 3
+    flops an element are far below the ridge)."""
+    return bound(3.0 * b * h * w * c, 2.0 * b * h * w * c + 8.0 * b * c)
+
+
+def phase17(gen: torch.Generator, table: dict) -> None:
+    """K6 (channel sums) against its plain version at the UNet's GroupNorm
+    input shapes, in both memory orders, beside the two torch reductions;
+    its VJP against autograd through the plain version. Its check on real
+    ResBlock inputs runs inside phase 19 (`hold_k6_on_resblocks`)."""
+    from minddiffusion_tpu_torch.ops import gn_stats
+
+    for b, h, w, c in GN_CASES:
+        x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+        xt = x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+        ref = gn_stats.channel_sums_plain(x)
+        for layout, xx in (("bhwc", x), ("hwbc", xt)):
+            got = gn_stats.channel_sums(xx, layout == "hwbc")
+            torch.cuda.synchronize()
+            abs_err, err = max(errors(g, r) for g, r in zip(got, ref))
+            assert all(torch.isfinite(g).all() for g in got), layout
+            ms = cuda_ms(lambda: gn_stats.channel_sums(xx, layout == "hwbc"))
+            plain_ms = cuda_ms(lambda: gn_stats.channel_sums_plain(xx), runs=5)
+            # no single library call computes both sums: the yardstick is two
+            reductions_ms = cuda_ms(lambda: (xx.float().sum((1, 2)),
+                                             (xx.float() ** 2).sum((1, 2))))
+            bound_ms, bound_by = stats_bound(b, h, w, c)
+            label = f"{b}x{h}x{w}x{c}_{layout}"
+            log(f"[phase 17] channel_sums {label} max_abs_err={abs_err:.3e} "
+                f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"torch_reductions_ms={reductions_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            assert err <= REL_TOL, (label, err)
+            table["channel_sums"]["cases"].append(
+                dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, unfused_ms=reductions_ms, bound_ms=bound_ms,
+                     bound_by=bound_by))
+    x = torch.randn(3, 32, 32, 640, generator=gen, device="cuda").to(torch.bfloat16)
+    g1, g2 = (torch.randn(3, 640, generator=gen, device="cuda") for _ in range(2))
+    grads = []
+    for fn in (gn_stats.channel_sums, gn_stats.channel_sums_plain):
+        leaf = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(leaf), (leaf,), (g1, g2))[0])
+    _, err = errors(*grads)
+    log(f"[phase 17] channel_sums vjp (3, 32, 32, 640) rel_err_vs_autograd_plain={err:.3e}")
+    assert err <= REL_TOL, err
+
+
+def hold_k6_on_resblocks(captured: dict) -> None:
+    """K6 against GroupNorm32.stat_sums (the sums GroupNorm32.affine builds
+    its fold from) on ResBlock inputs caught in a train step."""
+    from minddiffusion_tpu_torch.ops import gn_stats
+
+    for name, (norm, x) in captured.items():
+        ref = norm.stat_sums(x)
+        for transposed in (False, True):
+            xx = x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3) if transposed else x
+            got = gn_stats.channel_sums(xx, transposed)
+            abs_err, err = max(errors(g, r) for g, r in zip(got, ref))
+            log(f"[phase 17] channel_sums on {name} input {tuple(x.shape)} "
+                f"transposed={transposed} max_abs_err={abs_err:.3e} "
+                f"rel_err_vs_groupnorm_sums={err:.3e}")
+            assert err <= REL_TOL, (name, err)
+
+
+FF_CASES = [("ds1_16x4096x320", 16, 4096, 320), ("ds2_16x1024x640", 16, 1024, 640),
+            ("ds4_16x256x1280", 16, 256, 1280)]
+FF_SITES = {"ds1": "input_blocks.1.1.transformer_blocks.0",
+            "ds2": "input_blocks.4.1.transformer_blocks.0",
+            "ds4": "input_blocks.7.1.transformer_blocks.0"}
+
+
+def ff_bound(b: int, n: int, c: int, f: int) -> "tuple[float, str]":
+    """K5's bound: the two products' 2*B*N*3*C*F bf16 flops against reading x,
+    the weights and biases once and writing y."""
+    return bound(2.0 * b * n * 3 * c * f,
+                 2.0 * (2 * b * n * c + 3 * c * f + 2 * f + 3 * c))
+
+
+def phase18(gen: torch.Generator, table: dict) -> None:
+    """K5 (fused LN -> GEGLU -> FF -> residual) against its plain version at
+    the SD2 transformer widths (CFG batch 16, 512^2: ds1 4096 tokens x 320,
+    ds2 1024 x 640, ds4 256 x 1280; F = 4C), beside the unfused bf16 chain
+    (no single library call computes it); then against the port's own
+    `x + ff(norm3(x))` on the ds1, ds2 and ds4 inputs caught in one full-width
+    SD2 UNet eval. No path launches K5 (the JAX package retired its hook)."""
+    from minddiffusion_tpu_torch.ops import fused_ff
+
+    rec = table["fused_ff"]
+    with torch.inference_mode():
+        for label, b, n, c in FF_CASES:
+            f = 4 * c
+            rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+            args = (rand(b, n, c).to(torch.bfloat16), 1.0 + 0.1 * rand(c), 0.1 * rand(c),
+                    (rand(2 * f, c) * c ** -0.5).to(torch.bfloat16),
+                    (0.1 * rand(2 * f)).to(torch.bfloat16),
+                    (rand(c, f) * f ** -0.5).to(torch.bfloat16),
+                    (0.1 * rand(c)).to(torch.bfloat16))
+            x, ln_w, ln_b, w1, b1, w2, b2 = args
+            ref = fused_ff.fused_ff_plain(*args)
+            got = fused_ff.fused_ln_geglu_ff(*args)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all() and got.shape == x.shape, label
+            abs_err, err = errors(got, ref)
+            ln_wb, ln_bb = ln_w.to(torch.bfloat16), ln_b.to(torch.bfloat16)
+
+            def unfused():
+                h = F.layer_norm(x, (c,), ln_wb, ln_bb, 1e-5)
+                a, gate = F.linear(h, w1, b1).chunk(2, dim=-1)
+                return x + F.linear(a * F.gelu(gate, approximate="tanh"), w2, b2)
+
+            _, err_chain = errors(unfused(), ref)
+            ms = cuda_ms(lambda: fused_ff.fused_ln_geglu_ff(*args))
+            plain_ms = cuda_ms(lambda: fused_ff.fused_ff_plain(*args), runs=5)
+            unfused_ms = cuda_ms(unfused)
+            bound_ms, bound_by = ff_bound(b, n, c, f)
+            log(f"[phase 18] fused_ff {label} F={f} max_abs_err={abs_err:.3e} "
+                f"rel_err={err:.3e} unfused_vs_plain={err_chain:.3e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} unfused_chain_ms={unfused_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by})")
+            assert err <= REL_TOL, (label, err)
+            rec["cases"].append(dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
+                                     plain_ms=plain_ms, library_ms=None,
+                                     unfused_ms=unfused_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by))
+        del args, x, ref, got
+        models = sd2_models(gen)
+        unet = models.unet
+        blocks = {site: unet.get_submodule(path) for site, path in FF_SITES.items()}
+        caught = {}
+        def catch(site):
+            def hook(mod, inp):        # returns None: the input is left as it is
+                caught.setdefault(site, inp[0].clone())
+            return hook
+
+        hooks = [blk.norm3.register_forward_pre_hook(catch(site))
+                 for site, blk in blocks.items()]
+        x8 = torch.randn(16, 64, 64, 4, generator=gen, device="cuda")
+        t = torch.linspace(1, 981, 16, device="cuda").round().long()
+        ctx = torch.randn(16, 77, 1024, generator=gen, device="cuda")
+        with unet.hoisted_winograd():
+            unet(x8, t, ctx)
+        for h in hooks:
+            h.remove()
+        for site, blk in blocks.items():
+            x = caught[site]
+            ref = x + blk.ff(blk.norm3(x))
+            got = fused_ff.fused_ln_geglu_ff(x, *fused_ff.block_args(blk))
+            torch.cuda.synchronize()
+            abs_err, err = errors(got, ref)
+            log(f"[phase 18] fused_ff on the {site} block input {tuple(x.shape)} of an SD2 "
+                f"UNet eval: max_abs_err={abs_err:.3e} rel_err_vs_port_block={err:.3e}")
+            assert err <= REL_TOL, (site, err)
+    del models, unet, blocks, caught
+    torch.cuda.empty_cache()
+
+
+TRAIN_BATCH, TRAIN_SIZE = 3, 512
+RESBLOCK_SITES = ("input_blocks.1.0", "input_blocks.4.0", "input_blocks.7.0",
+                  "middle_block.0", "output_blocks.3.0")
+
+
+def train_batch(gen: torch.Generator, vocab: int, reg: bool = False) -> dict:
+    def one():
+        return (torch.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3, generator=gen,
+                           device="cuda") * 2 - 1,
+                torch.randint(0, vocab, (TRAIN_BATCH, 77), generator=gen, device="cuda"))
+    image, tokens = one()
+    out = {"image": image, "tokens": tokens}
+    if reg:
+        out["reg_image"], out["reg_tokens"] = one()
+    return out
+
+
+def phase19(gen: torch.Generator) -> dict:
+    """SD2 finetune at 512^2, batch 3, fp32 master weights, bf16 compute,
+    warmup 0: one warm step, 3 timed steps with launch counts, the finite
+    flag and moved params; the P5 check (the UNet gradient of the kernel
+    path against the plain path's on one batch with fixed draws), passing,
+    and failing without the gradient bridges; and K6 on ResBlock inputs
+    caught in a step."""
+    from minddiffusion_tpu_torch import ops
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+    from minddiffusion_tpu_torch.train import trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    models = SDModels.create(family="sd2", dtype=torch.bfloat16, param_dtype=torch.float32,
+                             attn_impl=None, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(11))
+    config = trainer.TrainConfig(warmup_steps=0)
+    state = trainer.create_train_state(models, config)
+    step = trainer.make_train_step(config)
+    batch = train_batch(gen, 49408)
+    unet_before = {n: p.detach().clone() for n, p in models.unet.named_parameters()}
+    expected = expected_counts("sd2_finetune_512_b3")
+    captured = {}
+
+    def catch(site):
+        def hook(mod, inp):            # returns None: the input is left as it is
+            captured.setdefault(site, (mod.in_layers[0], inp[0].detach().clone()))
+        return hook
+
+    hooks = [models.unet.get_submodule(s).register_forward_pre_hook(catch(s))
+             for s in RESBLOCK_SITES]
+    metrics = step(state, batch, 0)                       # warm step
+    for h in hooks:
+        h.remove()
+    times, counts = [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        counts = read_counts()
+        assert counts == expected, (counts, expected)
+    host = {k: v.item() for k, v in metrics.items()}
+    moved = sum(not torch.equal(p, unet_before[n]) for n, p in models.unet.named_parameters())
+    n_params = len(unet_before)
+    s_step = statistics.median(times)
+    log(f"[phase 19] sd2 finetune 512x512 B={TRAIN_BATCH} fp32 master / bf16 compute "
+        f"launches_per_step={counts} expected={expected} s_per_step={times} "
+        f"median_s={s_step:.4f} img_per_s={TRAIN_BATCH / s_step:.4f} metrics={host} "
+        f"unet_tensors_moved={moved}/{n_params} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    assert host["grads_finite"] == 1.0 and all(map(lambda v: v == v, host.values()))
+    assert moved == n_params, (moved, n_params)
+    del unet_before
+    hold_k6_on_resblocks(captured)
+    del captured
+
+    # P5: the kernel path's UNet gradient against the plain path's
+    g = torch.Generator(device="cuda").manual_seed(12)
+    draws = {"t": torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"),
+             "noise": torch.randn(TRAIN_BATCH, 64, 64, 4, generator=g, device="cuda"),
+             "enc_noise": torch.randn(TRAIN_BATCH, 64, 64, 4, generator=g, device="cuda")}
+    loss_and_grads = trainer.make_loss_and_grads(config)
+    names = [n for n in state.grad_params if n.startswith("model.diffusion_model.")]
+    reset_counts()
+    m_k, grads_k = loss_and_grads(state, batch, None, draws)
+    grads_k = {n: grads_k[n] for n in names}
+    counts_k = read_counts()
+    with ops.plain_reference():
+        m_p, grads_p = loss_and_grads(state, batch, None, draws)
+    grads_p = {n: grads_p[n] for n in names}
+    num = sum((grads_k[n].float() - grads_p[n].float()).pow(2).sum() for n in names)
+    den = sum(grads_p[n].float().pow(2).sum() for n in names)
+    rel_l2 = (num / den).sqrt().item()
+    zero_k = sum(int(grads_k[n].abs().sum().item() == 0) for n in names)
+    log(f"[phase 19] P5 check: unet grad rel_l2 kernel vs plain path = {rel_l2:.3e} "
+        f"(loss {m_k['loss'].item():.6f} vs {m_p['loss'].item():.6f}; "
+        f"kernel-path launches {counts_k}; all-zero unet grads on the kernel path "
+        f"{zero_k}/{len(names)})")
+    assert rel_l2 <= 5e-2, rel_l2
+    del grads_k
+    # the same check with the bridges taken out: it must fail
+    with without_gradient_bridges():
+        _, grads_b = loss_and_grads(state, batch, None, draws)
+    num = sum((grads_b[n].float() - grads_p[n].float()).pow(2).sum() for n in names)
+    rel_l2_b = (num / den).sqrt().item()
+    zero_b = sum(int(grads_b[n].abs().sum().item() == 0) for n in names)
+    log(f"[phase 19] P5 check without the gradient bridges (the wrappers before the "
+        f"repair): rel_l2={rel_l2_b:.3e}, all-zero unet grads {zero_b}/{len(names)}")
+    assert rel_l2_b > 5e-2, rel_l2_b
+    del state, models, grads_b, grads_p, step, loss_and_grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def without_gradient_bridges():
+    """The kernel wrappers as they were before the gradient bridges: the
+    kernel's output carries no grad_fn, so autograd drops its branch."""
+    from minddiffusion_tpu_torch.ops import flash_attention as fa, winograd as wg
+
+    def wino(x, w, b, gathered):
+        u = wg.transform_weights(w.detach().to(x.dtype).permute(2, 3, 1, 0))
+        conv = wg.conv3x3_winograd_gathered if gathered else wg.conv3x3_winograd
+        return conv(x, u.to(x.dtype).contiguous(), b.detach().float().contiguous())
+
+    patches = {fa._PackedAttentionFn: fa._packed_launch,
+               fa._FlashAttentionFn: fa._flash_launch, wg._WinogradConvFn: wino}
+    for fn, launch in patches.items():
+        fn.apply = launch          # shadows torch.autograd.Function.apply
+    try:
+        yield
+    finally:
+        for fn in patches:
+            del fn.apply
+
+
+ZH_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "一", "只", "猫", "狗", "照", "片", "sks"]
+
+
+def phase20(tmp: str) -> "tuple[dict, dict]":
+    """Wukong LoRA at full width through the train CLI (--family wukong
+    --train_mode lora, 512^2, batch 3, 3 steps) on 6 seeded PNGs with a
+    CSV and a synthetic vocab_zh.txt: only lora_a / lora_b move, every base
+    tensor stays bytewise; the adapter checkpoint holds only LoRA entries and
+    reloads; the merged model's eps is within 2e-2 relative L2 of the LoRA
+    model's. Then one DreamBooth step through the same CLI."""
+    import numpy as np
+    from PIL import Image
+
+    from minddiffusion_tpu_torch.cli import common, train as train_cli
+    from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
+    from minddiffusion_tpu_torch.models import lora
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+
+    rng = np.random.default_rng(20)
+    data, cls, assets = (os.path.join(tmp, d) for d in ("data", "cls", "assets"))
+    for d in (data, cls, assets):
+        os.makedirs(d)
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 256, (560, 600, 3), dtype=np.uint8)).save(
+            os.path.join(data, f"im_{i}.png"))
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)).save(
+            os.path.join(cls, f"c_{i}.png"))
+    with open(os.path.join(data, "train.csv"), "w", encoding="utf-8") as f:
+        f.write("dir,text\n" + "".join(f"im_{i}.png,一只猫的照片\n" for i in range(6)))
+    with open(os.path.join(assets, "vocab_zh.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(ZH_VOCAB) + "\n")
+    os.environ["MINDDIFFUSION_TPU_ASSETS"] = assets
+    common_args = ["--family", "wukong", "--image_size", "512", "--train_batch_size", "3",
+                   "--warmup_steps", "0", "--start_learning_rate", "1e-4", "--seed", "5",
+                   "--save_checkpoint_steps", "3"]
+    base = common.build_sd("wukong", "bf16", torch.device("cuda"), seed=5,
+                           param_dtype=torch.float32, enable_lora=True, exact_attention=True)
+    before = {k: v.detach().cpu().clone() for kind, m in base.modules().items()
+              for k, v in [(f"{kind}.{n}", p) for n, p in m.state_dict().items()]}
+    del base
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "lora_out")
+    reset_counts()
+    t0 = time.time()
+    state = train_cli.main(common_args + ["--train_mode", "lora", "--max_steps", "3",
+                                          "--data_path", data, "--output_path", out])
+    torch.cuda.synchronize()
+    lora_s = time.time() - t0
+    counts = read_counts()
+    expected = expected_counts("wukong_lora_512_b3_3steps")
+    assert counts == expected, (counts, expected)
+    after = {f"{kind}.{n}": v for kind, m in state.models.modules().items()
+             for n, v in m.state_dict().items()}
+    changed = {k for k in after if not torch.equal(after[k].cpu(), before[k])}
+    lora_keys = {k for k in after if lora.is_lora_name(k)}
+    assert changed and changed <= lora_keys, sorted(changed - lora_keys)[:5]
+    mgr = CheckpointManager(os.path.join(out, "ckpt"))
+    adapters = mgr.restore_latest()
+    full = state.models.state_dict()
+    assert mgr.latest_step() == 3 and set(adapters) == {k for k in full if lora.is_lora_name(k)}
+    assert all(torch.equal(v, full[k].cpu()) for k, v in adapters.items())
+    # reload: the adapters over a fresh LoRA model's state dict
+    fresh = common.build_sd("wukong", "bf16", torch.device("cuda"), seed=5,
+                            param_dtype=torch.float32, enable_lora=True, exact_attention=True)
+    sd = lora.apply_lora_state_dict(fresh.state_dict(), adapters)
+    fresh.load_state_dict({k: v.float().cpu().numpy() for k, v in sd.items()})
+    # the merged weights in the model without LoRA
+    merged = SDModels.create(family="wukong", dtype=torch.bfloat16, param_dtype=torch.float32,
+                             attn_impl=None, device="cuda")
+    merged.load_state_dict({k: v.float().cpu().numpy()
+                            for k, v in lora.merge_lora_state_dict(full).items()})
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(4, 64, 64, 4, generator=g, device="cuda")
+    t = torch.tensor([10, 300, 600, 900], device="cuda")
+    ctx = torch.randn(4, 77, 768, generator=g, device="cuda")
+    with torch.inference_mode():
+        eps_lora = state.models.unet(x, t, ctx)
+        eps_reload = fresh.unet(x, t, ctx)
+        eps_merged = merged.unet(x, t, ctx)
+    rel_merged = ((eps_merged - eps_lora).norm() / eps_lora.norm()).item()
+    rel_reload = ((eps_reload - eps_lora).norm() / eps_lora.norm()).item()
+    assert rel_reload <= 1e-3, rel_reload
+    b_norm = max(v.abs().max().item() for k, v in adapters.items() if k.endswith(".lora_b"))
+    log(f"[phase 20] wukong lora 512x512 B=3 3 steps through cli/train.py: "
+        f"launches={counts} expected={expected} wall_s={lora_s:.2f} "
+        f"changed={len(changed)} lora_tensors={len(lora_keys)} adapters_saved={len(adapters)} "
+        f"max|lora_b|={b_norm:.3e} merged_eps_rel_l2={rel_merged:.3e} "
+        f"reloaded_eps_rel_l2={rel_reload:.3e}")
+    assert rel_merged <= REL_TOL, rel_merged
+    del state, fresh, merged, full, after, before, adapters, sd
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    db = train_cli.main(common_args + ["--train_mode", "dreambooth", "--max_steps", "1",
+                                       "--instance_data_dir", data, "--class_data_dir", cls,
+                                       "--token", "sks", "--class_word", "猫",
+                                       "--train_data_repeats", "1",
+                                       "--output_path", os.path.join(tmp, "db_out")])
+    torch.cuda.synchronize()
+    db_counts = read_counts()
+    expected_db = expected_counts("wukong_dreambooth_512_b3_1step")
+    log(f"[phase 20] wukong dreambooth 512x512 B=3 1 step through cli/train.py: "
+        f"launches={db_counts} expected={expected_db} step={db.step} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    assert db_counts == expected_db, (db_counts, expected_db)
+    del db
+    torch.cuda.empty_cache()
+    return counts, db_counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1001,6 +1440,12 @@ def main() -> int:
         "glide_tail": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/glide_tail.cu",
             replaces="benchmarks/research/glide_tail.py:282", cases=[], held_in_phase=16),
+        "channel_sums": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/gn_stats.cu",
+            replaces="benchmarks/research/gn_stats.py:87", cases=[], held_in_phase=17),
+        "fused_ff": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/fused_ff.cu",
+            replaces="benchmarks/research/fused_ff.py:127", cases=[], held_in_phase=18),
     }
     name = phase0()
     phase1()
@@ -1024,6 +1469,13 @@ def main() -> int:
     by_path["glide_cascade_b8"], img64 = phase15(glide)
     phase16(glide, img64, gen, table)
     del glide
+    torch.cuda.empty_cache()
+    phase17(gen, table)
+    phase18(gen, table)
+    by_path["sd2_finetune_512_b3"] = phase19(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["wukong_lora_512_b3_3steps"], by_path["wukong_dreambooth_512_b3_1step"] = \
+            phase20(tmp)
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])

@@ -1,6 +1,7 @@
 """Shared CLI plumbing: model building, weight loading, tokenizers, image saving."""
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -41,25 +42,45 @@ def tiny_configs(family: str) -> dict:
 
 
 def build_sd(family: str, dtype_str: str, device: torch.device, tiny: bool = False,
-             ckpt_path: Optional[str] = None, seed: int = 0) -> SDModels:
+             ckpt_path: Optional[str] = None, seed: int = 0,
+             param_dtype: Optional[torch.dtype] = None,
+             enable_lora: bool = False, exact_attention: bool = False) -> SDModels:
     """SD models with weights from an LDM-named torch checkpoint, or seeded
     random weights (with a warning) when no checkpoint is given.
-    `tiny`: a structurally complete miniature for smoke tests."""
+    `tiny`: a structurally complete miniature for smoke tests.
+    `param_dtype` torch.float32 keeps fp32 master weights under `dtype_str`
+    compute (training); `enable_lora` adds the UNet's LoRA adapters, drawn
+    from `seed` (A ~ N(0, 0.02^2), B = 0) where the checkpoint has none.
+    `exact_attention`: exact softmax at every kernel site, as the JAX train
+    CLI builds its models (its txt2img takes ATTN_IMPL's raw-exp for sd2)."""
+    attn_impl = None if exact_attention else ATTN_IMPL[family]
     configs = tiny_configs(family) if tiny else {}
-    generator = None
+    if tiny:
+        configs["unet_config"] = dataclasses.replace(
+            configs["unet_config"], attn_impl=attn_impl, enable_lora=enable_lora)
+    generator = torch.Generator(device=device).manual_seed(seed)
     if ckpt_path is None:
         print("WARNING: no checkpoint given — using RANDOM weights (noise images)")
-        generator = torch.Generator(device=device).manual_seed(seed)
     models = SDModels.create(family=family, dtype=DTYPES[dtype_str],
-                             attn_impl=ATTN_IMPL[family], device=device,
-                             generator=generator, **configs)
+                             attn_impl=attn_impl, device=device,
+                             generator=generator if ckpt_path is None else None,
+                             param_dtype=param_dtype, enable_lora=enable_lora, **configs)
     if ckpt_path is not None:
         obj = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         sd = obj.get("state_dict", obj)
         prefixes = ("model.diffusion_model.", "first_stage_model.",
                     "cond_stage_model.model.")
-        models.load_state_dict({k: v.float().numpy() for k, v in sd.items()
-                                if k.startswith(prefixes)})
+        sd = {k: v.float().numpy() for k, v in sd.items() if k.startswith(prefixes)}
+        if enable_lora:
+            from minddiffusion_tpu_torch.models.lora import is_lora_name
+
+            for name, p in models.unet.named_parameters():
+                key = "model.diffusion_model." + name
+                if is_lora_name(name) and key not in sd:
+                    std = 0.02 if name.endswith(".lora_a") else 0.0
+                    sd[key] = (torch.randn(p.shape, generator=generator, device=device)
+                               * std).float().cpu().numpy()
+        models.load_state_dict(sd)
     return models
 
 

@@ -9,6 +9,8 @@ numpy arrays and returns flat LDM names (`model.diffusion_model.*`,
   flax conv  (kh, kw, I, O) -> torch conv   (O, I, kh, kw)
   flax dense (I, O)         -> torch linear (O, I)
   norm scale/bias           -> weight/bias
+  LoRA {base/kernel, lora_a (I, r), lora_b (r, O)} -> weight (O, I),
+       lora_a, lora_b (kept as they are)
 
 The port's modules carry exactly these names, so
 `SDModels.load_state_dict` loads the result with strict=True.
@@ -58,10 +60,14 @@ def _transformer(parts, leaf, use_linear: bool) -> Entry:
         inner = rest[0]
         if inner in ("attn1", "attn2"):
             proj = rest[1]
-            if proj == "to_out":
-                return _leaf(leaf, f"{base}.{inner}.to_out.0", "dense")
-            if proj in ("to_q", "to_k", "to_v"):
-                return _leaf(leaf, f"{base}.{inner}.{proj}", "dense")
+            # a LoRADense site: {base: {kernel[, bias]}, lora_a, lora_b}
+            if rest[2:] not in ([], ["base"]) or proj not in ("to_q", "to_k", "to_v",
+                                                             "to_out"):
+                return None
+            name = f"{base}.{inner}.{'to_out.0' if proj == 'to_out' else proj}"
+            if leaf in ("lora_a", "lora_b"):
+                return f"{name}.{leaf}", "ident"
+            return _leaf(leaf, name, "dense")
         if inner in ("norm1", "norm2", "norm3"):
             return _leaf(leaf, f"{base}.{inner}", "ident")
         if inner == "ff":
@@ -102,8 +108,6 @@ def unet_translator(config) -> Callable[[Tuple[str, ...]], Entry]:
     def translate(path: Tuple[str, ...]) -> Entry:
         parts = list(path)
         leaf = parts.pop()
-        if leaf in ("lora_a", "lora_b"):
-            return None
         head = parts.pop(0)
         if head in top:
             return _leaf(leaf, *top[head])

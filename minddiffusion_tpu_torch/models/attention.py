@@ -8,7 +8,11 @@ residual. GEGLU uses the tanh GELU (flax `nn.gelu`); the SpatialTransformer
 GroupNorm uses eps 1e-6; proj_in/proj_out are linear (SD2,
 `use_linear=True`) or 1x1 convs (SD1), which compute the same per-token
 map but keep the LDM conv weight layout (O, I, 1, 1). Attention runs on
-packed (B, N, heads * dim_head) tokens through ops/attention.
+packed (B, N, heads * dim_head) tokens through ops/attention. Every linear
+map computes in its input's dtype (`layers.Linear`). With `enable_lora`,
+to_q, to_k, to_v and to_out.0 of every CrossAttention carry a rank-r
+adapter (models/lora.LoRALinear: state names `<proj>.lora_a` (in, r),
+`<proj>.lora_b` (r, out) beside the base `<proj>.weight`).
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddiffusion_tpu_torch.models.layers import Conv1x1, GroupNorm32, LayerNormFp32
+from minddiffusion_tpu_torch.models.layers import Conv1x1, GroupNorm32, LayerNormFp32, Linear
+from minddiffusion_tpu_torch.models.lora import LoRALinear
 from minddiffusion_tpu_torch.ops.attention import packed_attention
 
 
@@ -27,15 +32,20 @@ class CrossAttention(nn.Module):
     bias, output projection with bias."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None, attn_impl: Optional[str] = None):
+                 context_dim: Optional[int] = None, attn_impl: Optional[str] = None,
+                 lora: Optional[dict] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.attn_impl = attn_impl
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Identity())
+
+        def proj(n_in, n_out, bias):
+            return LoRALinear(n_in, n_out, bias, **lora) if lora else Linear(n_in, n_out, bias)
+
+        self.to_q = proj(query_dim, inner, False)
+        self.to_k = proj(context_dim or query_dim, inner, False)
+        self.to_v = proj(context_dim or query_dim, inner, False)
+        self.to_out = nn.Sequential(proj(inner, query_dim, True), nn.Identity())
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -48,7 +58,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -59,7 +69,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Identity(),
-                                 nn.Linear(dim * mult, dim))
+                                 Linear(dim * mult, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -67,10 +77,11 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int], attn_impl: Optional[str] = None):
+                 context_dim: Optional[int], attn_impl: Optional[str] = None,
+                 lora: Optional[dict] = None):
         super().__init__()
-        self.attn1 = CrossAttention(dim, heads, dim_head, attn_impl=attn_impl)
-        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, attn_impl)
+        self.attn1 = CrossAttention(dim, heads, dim_head, attn_impl=attn_impl, lora=lora)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim, attn_impl, lora)
         self.ff = FeedForward(dim)
         self.norm1 = LayerNormFp32(dim)
         self.norm2 = LayerNormFp32(dim)
@@ -88,14 +99,15 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 attn_impl: Optional[str] = None, use_linear: bool = True):
+                 attn_impl: Optional[str] = None, use_linear: bool = True,
+                 lora: Optional[dict] = None):
         super().__init__()
         inner = heads * dim_head
-        proj = nn.Linear if use_linear else Conv1x1
+        proj = Linear if use_linear else Conv1x1
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = proj(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, context_dim, attn_impl)
+            BasicTransformerBlock(inner, heads, dim_head, context_dim, attn_impl, lora)
             for _ in range(depth))
         self.proj_out = proj(inner, in_channels)
 

@@ -9,16 +9,19 @@ x * sigmoid(1.702 x), over the zh wordpiece vocabulary (ids below 21128
 of the 49408-row embedding). Token ids outside
 the vocabulary are clipped to it (JAX `take(..., mode='clip')`). Returns the
 full final-LayerNorm sequence (B, L, width) in fp32: the UNet's context.
+The activations run in `compute_dtype`, or in the weights' dtype when it is
+None.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddiffusion_tpu_torch.models.layers import LayerNormFp32
+from minddiffusion_tpu_torch.models.layers import LayerNormFp32, Linear
 from minddiffusion_tpu_torch.ops.attention import einsum_attention
 
 
@@ -51,11 +54,11 @@ class CausalSelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         nn.init.xavier_uniform_(self.in_proj_weight)
-        self.out_proj = nn.Linear(width, width)
+        self.out_proj = Linear(width, width)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         b, l, w = x.shape
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = (t.reshape(b, l, self.heads, w // self.heads)
                    for t in qkv.chunk(3, dim=-1))
         return self.out_proj(einsum_attention(q, k, v, bias=bias).reshape(b, l, w))
@@ -69,8 +72,8 @@ class ResidualAttentionBlock(nn.Module):
         self.attn = CausalSelfAttention(width, heads)
         self.ln_2 = LayerNormFp32(width)
         self.mlp = nn.Module()
-        self.mlp.c_fc = nn.Linear(width, 4 * width)
-        self.mlp.c_proj = nn.Linear(4 * width, width)
+        self.mlp.c_fc = Linear(width, 4 * width)
+        self.mlp.c_proj = Linear(4 * width, width)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), bias)
@@ -85,6 +88,7 @@ class CLIPTextEncoder(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         self.config = config
+        self.compute_dtype: Optional[torch.dtype] = None   # None: the weights' dtype
         self.token_embedding = nn.Embedding(config.vocab_size, config.width)
         self.positional_embedding = nn.Parameter(
             torch.randn(config.context_length, config.width) * 0.01)
@@ -96,7 +100,7 @@ class CLIPTextEncoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         ids = tokens.long().clamp(0, self.config.vocab_size - 1)
-        x = self.token_embedding(ids)
+        x = self.token_embedding(ids).to(self.compute_dtype or self.token_embedding.weight.dtype)
         l = x.shape[1]
         x = x + self.positional_embedding[:l].to(x.dtype)
         causal = torch.full((l, l), float("-inf"), device=x.device).triu(1)

@@ -7,7 +7,17 @@ kernel at the gated shapes (ops/winograd.wino_route) and to F.conv2d
 otherwise: K2 by default, K3 (the gathered-tile kernel) under
 MDT_WINO_TUNE=dma=0, as the JAX package's `dma` flag does. A GroupNorm+SiLU
 folded to a per-(batch, channel) affine (`gn=(mult, add)`) runs as K2's
-prologue, on the host before K3's gather, elementwise elsewhere.
+prologue, on the host before K3's gather, elementwise elsewhere. Where
+autograd records (grad enabled, and x, the weight, the bias or the GN
+affine requiring grad) a gated conv takes the JAX package's training route
+(minddiffusion_tpu/models/layers.py:262-281): GN+SiLU elementwise in fp32,
+rounded to the activation dtype, then the kernel without its prologue and
+without a cached U, differentiated through the direct conv
+(ops/winograd.conv3x3_winograd_ad).
+
+Every layer computes in its input's dtype and casts its weights to it at
+use (`Linear`, the convs), so fp32 master weights run bf16 compute, as the
+JAX package's modules do with dtype=bf16, param_dtype=fp32.
 """
 from __future__ import annotations
 
@@ -93,14 +103,29 @@ class GroupNorm32(nn.Module):
                          self.weight.float(), self.bias.float(), self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
+    @staticmethod
+    def stat_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-channel fp32 spatial sums (sum x, sum x^2), each (B, C), of
+        NHWC x: the statistics every GroupNorm affine is built from (the
+        quantities the channel-sums kernel K6 computes, ops/gn_stats.py)."""
+        x32 = x.float()
+        return x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))
+
     def affine(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """This norm as a (mult, add) affine of x (see gn_affine_from_sums)."""
-        x32 = x.float()
-        s1 = x32.sum(dim=(1, 2))
-        s2 = (x32 * x32).sum(dim=(1, 2))
+        s1, s2 = self.stat_sums(x)
         return gn_affine_from_sums(s1, s2, x.shape[1] * x.shape[2], self.weight,
                                    self.bias, self.num_groups, self.eps, emb)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype: the weight (and bias) are
+    cast to it at use, as flax's Dense casts its fp32 params to `dtype`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class LayerNormFp32(nn.LayerNorm):
@@ -109,6 +134,12 @@ class LayerNormFp32(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
+
+
+def _gn_silu(x: torch.Tensor, gn: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """silu(x * mult + add) in fp32, rounded to x's dtype."""
+    xf = x.float() * gn[0][:, None, None, :] + gn[1][:, None, None, :]
+    return F.silu(xf).to(x.dtype)
 
 
 def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -124,6 +155,17 @@ def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     the kernel's plain version."""
     _, h, w, c_in = x.shape
     if winograd.wino_route(h, w, c_in):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, weight, bias, *(gn or ()))):
+            # the training route (module docstring)
+            if gn is not None:
+                x = _gn_silu(x, gn)
+            gathered = not flags().wino_dma
+            if ops.plain_active():
+                u = winograd.transform_weights(weight.to(x.dtype).permute(2, 3, 1, 0))
+                plain = winograd.winograd_gathered_plain if gathered else winograd.winograd_plain
+                return plain(x, u.to(x.dtype), bias)
+            return winograd.conv3x3_winograd_ad(x, weight, bias, gathered)
         u = None if u_cache is None else u_cache.get("u")
         if u is None:
             u = winograd.transform_weights(weight.permute(2, 3, 1, 0)).to(x.dtype).contiguous()
@@ -138,8 +180,7 @@ def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             return winograd.winograd_plain(x, u, bias, mult, add)
         return winograd.conv3x3_winograd(x.contiguous(), u, bias.float(), mult, add)
     if gn is not None:
-        xf = x.float() * gn[0][:, None, None, :] + gn[1][:, None, None, :]
-        x = F.silu(xf).to(x.dtype)
+        x = _gn_silu(x, gn)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), bias.to(x.dtype),
                  padding=1)
     return y.permute(0, 2, 3, 1)

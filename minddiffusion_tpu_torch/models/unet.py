@@ -3,7 +3,9 @@ the LDM structure with LDM module names (time_embed, input_blocks,
 middle_block, output_blocks, out), so an LDM state dict loads strictly.
 
 Public tensors are NHWC: x (B, H, W, C) latents, timesteps (B,) or (1,),
-context (B, L, context_dim); eps comes back fp32.
+context (B, L, context_dim); eps comes back fp32. The activations run in
+`compute_dtype` (bf16 over fp32 master weights in training), or in the
+weights' dtype when it is None.
 
 ResBlock: GN -> SiLU -> conv_in; + emb; GN -> SiLU -> conv_out; + skip.
 Both GN+SiLU run as a per-(batch, channel) affine (GroupNorm32.affine) fed
@@ -26,7 +28,7 @@ from torch import nn
 
 from minddiffusion_tpu_torch.models.attention import SpatialTransformer
 from minddiffusion_tpu_torch.models.layers import (
-    Conv1x1, Conv3x3, GroupNorm32, avg_pool_2x, hoisted_winograd,
+    Conv1x1, Conv3x3, GroupNorm32, Linear, avg_pool_2x, hoisted_winograd,
     nearest_upsample_2x, timestep_embedding)
 
 
@@ -44,6 +46,9 @@ class UNetConfig:
     context_dim: int = 1024
     use_linear_in_transformer: bool = True
     attn_impl: Optional[str] = None
+    enable_lora: bool = False
+    lora_rank: int = 4
+    lora_alpha: float = 4.0
 
     def head_split(self, ch: int) -> Tuple[int, int]:
         """(num_heads, dim_head) at a channel width."""
@@ -81,7 +86,7 @@ class ResBlock(nn.Module):
         self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(),
                                        Conv3x3(in_ch, out_ch))
         self.emb_layers = nn.Sequential(
-            nn.SiLU(), nn.Linear(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch))
+            nn.SiLU(), Linear(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch))
         self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(),
                                         nn.Identity(), Conv3x3(out_ch, out_ch))
         self.skip_connection = (Conv1x1(in_ch, out_ch) if in_ch != out_ch
@@ -129,16 +134,19 @@ class UNetModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype: Optional[torch.dtype] = None   # None: the weights' dtype
         mc = cfg.model_channels
         emb_dim = mc * 4
-        self.time_embed = nn.Sequential(nn.Linear(mc, emb_dim), nn.SiLU(),
-                                        nn.Linear(emb_dim, emb_dim))
+        self.time_embed = nn.Sequential(Linear(mc, emb_dim), nn.SiLU(),
+                                        Linear(emb_dim, emb_dim))
+        lora = (dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha) if cfg.enable_lora
+                else None)
 
         def transformer(ch):
             heads, dim_head = cfg.head_split(ch)
             return SpatialTransformer(ch, heads, dim_head, cfg.transformer_depth,
                                       cfg.context_dim, cfg.attn_impl,
-                                      cfg.use_linear_in_transformer)
+                                      cfg.use_linear_in_transformer, lora)
 
         ds = 1
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(cfg.in_channels, mc)])])
@@ -185,7 +193,7 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
-        dtype = self.time_embed[0].weight.dtype
+        dtype = self.compute_dtype or self.time_embed[0].weight.dtype
         t_emb = timestep_embedding(timesteps, self.config.model_channels)
         emb = self.time_embed(t_emb.to(dtype))
         h, context = x.to(dtype), context.to(dtype)

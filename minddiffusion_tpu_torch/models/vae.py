@@ -8,7 +8,7 @@ only decodes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -153,6 +153,7 @@ class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
+        self.compute_dtype: Optional[torch.dtype] = None   # None: the weights' dtype
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
         self.quant_conv = Conv1x1(2 * config.z_channels, 2 * config.embed_dim)
@@ -160,10 +161,10 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Image (B, H, W, 3) in [-1, 1] -> moments (B, H/f, W/f, 2*embed_dim) fp32."""
-        dtype = self.post_quant_conv.weight.dtype
+        dtype = self.compute_dtype or self.post_quant_conv.weight.dtype
         return self.quant_conv(self.encoder(x.to(dtype))).float()
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Unscaled latent (B, h, w, embed_dim) -> image (B, H, W, 3) fp32."""
-        dtype = self.post_quant_conv.weight.dtype
+        dtype = self.compute_dtype or self.post_quant_conv.weight.dtype
         return self.decoder(self.post_quant_conv(z.to(dtype)))

@@ -10,7 +10,12 @@ Ports of minddiffusion_tpu/ops/flash_attention.py:
     csrc/flash_attention.cu.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
-it launches its kernel or raises.
+it launches its kernel or raises. The launch runs inside a
+`torch.autograd.Function` whose backward recomputes
+`ops.attention.einsum_attention` from the saved q, k, v and differentiates
+that, as the JAX package's `custom_vjp`s `_packed_ad` / `_flash_ad` do
+(minddiffusion_tpu/ops/attention.py:98-158): the kernels have no backward,
+and none is launched in the backward pass.
 """
 from __future__ import annotations
 
@@ -71,13 +76,50 @@ def kernel_supports(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
             and c // heads in KERNEL_HEAD_DIMS and k.shape[1] % KEY_BLOCK == 0)
 
 
+def _einsum_vjp(q, k, v, g, scale: float, heads: int = 0):
+    """Gradients of `einsum_attention` at (q, k, v) against the cotangent g;
+    (B, N, C) packed tensors when `heads` is given, (B, N, H, D) otherwise."""
+    from minddiffusion_tpu_torch.ops.attention import einsum_attention
+
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        if heads:
+            b, nq, c = q.shape
+            split = [t.reshape(b, t.shape[1], heads, c // heads) for t in qkv]
+            out = einsum_attention(*split, scale=scale).reshape(b, nq, c)
+        else:
+            out = einsum_attention(*qkv, scale=scale)
+        return torch.autograd.grad(out, qkv, g)
+
+
+class _PackedAttentionFn(torch.autograd.Function):
+    """K1 forward, einsum-attention backward (JAX `_packed_ad`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale, exact):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale = heads, scale
+        return _packed_launch(q, k, v, heads, scale, exact)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*_einsum_vjp(q, k, v, g.contiguous(), ctx.scale, ctx.heads),
+                None, None, None)
+
+
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int, scale: float,
                            exact: bool = True) -> torch.Tensor:
     """q (B, Nq, C), k/v (B, Nk, C) -> (B, Nq, C). Counts its kernel launches
-    in `flash_attention_packed.launches`."""
+    in `flash_attention_packed.launches`; differentiable (module docstring)."""
     if q.device.type == "cpu":
         return packed_attention_plain(q, k, v, heads, scale, exact)
+    return _PackedAttentionFn.apply(q, k, v, heads, scale, exact)
+
+
+def _packed_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int, scale: float, exact: bool) -> torch.Tensor:
     b, nq, c = q.shape
     nk = k.shape[1]
     for name, t, shape in (("q", q, (b, nq, c)), ("k", k, (b, nk, c)),
@@ -139,12 +181,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 FLASH_HEAD_DIMS = (40, 64, 80, 160, 512)
 
 
+class _FlashAttentionFn(torch.autograd.Function):
+    """K4 forward, einsum-attention backward (JAX `_flash_ad`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, exact_softmax):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_launch(q, k, v, scale, exact_softmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*_einsum_vjp(q, k, v, g.contiguous(), ctx.scale), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, exact_softmax: bool = True) -> torch.Tensor:
     """q (B, Nq, H, D), k/v (B, Nk, H, D) -> (B, Nq, H, D); any Nq, Nk.
-    Counts its kernel launches in `flash_attention.launches`."""
+    Counts its kernel launches in `flash_attention.launches`; differentiable
+    (module docstring)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, exact_softmax)
+    return _FlashAttentionFn.apply(q, k, v, scale, exact_softmax)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, exact_softmax: bool) -> torch.Tensor:
     b, nq, h, d = q.shape
     nk = k.shape[1]
     for name, t, shape in (("q", q, (b, nq, h, d)), ("k", k, (b, nk, h, d)),

@@ -255,3 +255,48 @@ def conv3x3_winograd_gathered(x: torch.Tensor, u: torch.Tensor, bias: torch.Tens
 
 
 conv3x3_winograd_gathered.launches = 0
+
+
+def _direct_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The direct 3x3 conv in the operands' dtype (x's), bias added after:
+    the function whose gradient the Winograd kernels take (JAX `_direct_ref`;
+    a mixed bf16-operand / fp32-output conv has no transpose there)."""
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=1)
+    return y.permute(0, 2, 3, 1) + bias.to(x.dtype)
+
+
+class _WinogradConvFn(torch.autograd.Function):
+    """K2 (or K3) forward on U = G k G^T of the weight rounded to x's dtype,
+    direct-conv backward (JAX `conv3x3_winograd_ad`,
+    minddiffusion_tpu/ops/winograd.py:548-576). No kernel runs in the
+    backward pass."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gathered):
+        ctx.save_for_backward(x, weight, bias)
+        u = transform_weights(weight.to(x.dtype).permute(2, 3, 1, 0)).to(x.dtype).contiguous()
+        conv = conv3x3_winograd_gathered if gathered else conv3x3_winograd
+        return conv(x, u, bias.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, weight, bias)]
+            y = _direct_conv(*leaves)
+            grads = torch.autograd.grad(y, leaves, g.to(y.dtype))
+        return (*grads, None)
+
+
+def conv3x3_winograd_ad(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        gathered: bool = False) -> torch.Tensor:
+    """The training route of a Winograd-gated conv: x NHWC, weight OIHW (any
+    float dtype, e.g. fp32 master weights), bias (C_out,). Runs K2 (K3 when
+    `gathered`) with no prologue and no cached U, differentiable through the
+    direct conv. CPU tensors take the same plain versions as the kernels'
+    wrappers, differentiated through the Winograd algorithm itself."""
+    if x.device.type == "cpu":
+        u = transform_weights(weight.to(x.dtype).permute(2, 3, 1, 0)).to(x.dtype)
+        plain = winograd_gathered_plain if gathered else winograd_plain
+        return plain(x, u, bias)
+    return _WinogradConvFn.apply(x.contiguous(), weight, bias, gathered)

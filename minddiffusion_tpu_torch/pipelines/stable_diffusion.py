@@ -51,10 +51,11 @@ FAMILIES = {  # family: (UNet preset, text encoder preset)
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights at the SD scale, none of them zero: linear and
-    conv weights N(0, 1/fan_in), biases N(0, 0.02^2), norm scales
-    1 + N(0, 0.05^2) and shifts N(0, 0.05^2), token embeddings N(0, 0.02^2),
-    positional embeddings N(0, 0.01^2)."""
+    """Seeded random weights at the SD scale, none of them zero but the LoRA
+    B matrices: linear and conv weights N(0, 1/fan_in), biases N(0, 0.02^2),
+    norm scales 1 + N(0, 0.05^2) and shifts N(0, 0.05^2), token embeddings
+    N(0, 0.02^2), positional embeddings N(0, 0.01^2), LoRA A N(0, 0.02^2),
+    LoRA B zero (the JAX init)."""
     def normal(p, std, mean=0.0):
         with torch.no_grad():
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
@@ -69,7 +70,12 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     for name, p in module.named_parameters():
         if id(p) in norm_params:
             continue
-        if name.endswith("token_embedding.weight"):
+        if name.endswith(".lora_b"):      # zero: LoRA starts as a no-op
+            with torch.no_grad():
+                p.zero_()
+        elif name.endswith(".lora_a"):
+            normal(p, 0.02)
+        elif name.endswith("token_embedding.weight"):
             normal(p, 0.02)
         elif name.endswith("positional_embedding"):
             normal(p, 0.01)
@@ -106,17 +112,25 @@ class SDModels:
                generator: Optional[torch.Generator] = None,
                unet_config: Optional[UNetConfig] = None,
                vae_config: Optional[VAEConfig] = None,
-               text_config: Optional[CLIPTextConfig] = None) -> "SDModels":
+               text_config: Optional[CLIPTextConfig] = None,
+               param_dtype: Optional[torch.dtype] = None,
+               enable_lora: bool = False) -> "SDModels":
         """Build on `device`. With `generator` the weights are drawn by
         `init_random_`; without, they are zero until `load_state_dict`.
-        On a CUDA device the dtype is bfloat16, the one the kernels take."""
+        `dtype` is the compute dtype; on a CUDA device it is bfloat16, the
+        one the kernels take. `param_dtype` None stores the weights in
+        `dtype` (norms in fp32, `cast_for_inference`); torch.float32 keeps
+        fp32 master weights under `dtype` compute, the training form (the
+        JAX package's dtype=bf16, param_dtype=fp32). `enable_lora` puts
+        rank-4 adapters on the preset UNet's attention projections."""
         if family not in FAMILIES:
             raise ValueError(f"unknown SD family {family!r}; ported: {list(FAMILIES)}")
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels take bfloat16, got {dtype}; "
                              "use bfloat16 on a CUDA device (fp32 runs on the CPU)")
         unet_preset, text_preset = FAMILIES[family]
-        unet_config = unet_config or unet_preset(attn_impl=attn_impl)
+        unet_config = unet_config or unet_preset(attn_impl=attn_impl,
+                                                 enable_lora=enable_lora)
         with torch.device("meta"):
             nets = dict(unet=UNetModel(unet_config),
                         vae=AutoencoderKL(vae_config or VAEConfig()),
@@ -128,9 +142,19 @@ class SDModels:
             else:
                 for p in net.parameters():
                     p.detach().zero_()
-            nets[name] = cast_for_inference(net, dtype).eval()
+            if param_dtype is None:
+                nets[name] = cast_for_inference(net, dtype).eval()
+            else:
+                net.to(param_dtype).compute_dtype = dtype
+                nets[name] = net.eval()
         schedule = DiffusionSchedule.create(1000, 0.00085, 0.0120)
         return cls(schedule=schedule, **nets)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The flat LDM-named state dict of the three networks (the names
+        `load_state_dict` takes)."""
+        return {PREFIXES[kind] + k: v for kind, module in self.modules().items()
+                for k, v in module.state_dict().items()}
 
     def load_state_dict(self, state_dict: Dict[str, np.ndarray]) -> None:
         """Strict load of a flat LDM state dict (io/sd_weights.py names)."""

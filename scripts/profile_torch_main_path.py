@@ -22,7 +22,17 @@ seconds per stage of one cascade (host clock, the device synchronised at
 each stage boundary), the ms of one xf encode, one base eval (CFG batch
 2B), one super-res eval and one SRGAN call (CUDA events), and for the whole
 cascade and each eval kind the wall ms against the summed device kernel ms
-under torch.profiler. Imports nothing of JAX.
+under torch.profiler.
+
+`--train` profiles one SD train step of `--family` sd2 or wukong instead
+(fp32 master weights, bf16 compute, exact softmax, seeded random weights
+and batch, at the given size; `--batch` defaults to 3 there, the train
+CLI's; `--lora` trains the UNet's adapters only): the ms (CUDA events,
+median) of the loss forward (VAE encode under no_grad, text encoder, UNet),
+of the forward plus the gradient of every UNet and text-encoder param, and
+of the whole step (the finite guard and the AdamW update added), and the
+step's wall ms against its summed device kernel ms under torch.profiler.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -134,13 +144,51 @@ def profile_glide(args) -> None:
                         averages, mode="a")
 
 
+def profile_train(args) -> None:
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+    from minddiffusion_tpu_torch.train import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    models = SDModels.create(family=args.family, dtype=torch.bfloat16,
+                             param_dtype=torch.float32, attn_impl=None, device="cuda",
+                             generator=gen, enable_lora=args.lora)
+    config = trainer.TrainConfig(warmup_steps=0, trainable="lora" if args.lora else "unet")
+    state = trainer.create_train_state(models, config)
+    step = trainer.make_train_step(config)
+    loss_and_grads = trainer.make_loss_and_grads(config)
+    b = args.batch or 3
+    vocab = models.text_encoder.config.vocab_size
+    batch = {"image": torch.rand(b, args.height, args.width, 3, generator=gen,
+                                 device="cuda") * 2 - 1,
+             "tokens": torch.randint(0, vocab, (b, 77), generator=gen, device="cuda")}
+    print(f"train {args.family}{' lora' if args.lora else ''} {args.height}x{args.width} "
+          f"batch {b}")
+    fwd_ms = cuda_ms(lambda: trainer.diffusion_loss(models, batch["image"], batch["tokens"],
+                                                    gen), runs=3)
+    grad_ms = cuda_ms(lambda: loss_and_grads(state, batch, gen), runs=3)
+    step_ms = cuda_ms(lambda: step(state, batch, 0), runs=3)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, 0)
+    print(f"loss_forward_ms={fwd_ms:.3f} forward_and_grads_ms={grad_ms:.3f} "
+          f"step_ms={step_ms:.3f} img_per_s={b / step_ms * 1e3:.4f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    wall, dev, averages = profiled(lambda: step(state, batch, 0), PROFILED_EVALS)
+    print(f"profiled train step: wall_ms={wall:.3f} device_kernel_ms={dev:.3f} "
+          f"idle_share={1 - dev / wall:.3f}")
+    write_table(args.out, f"per-op totals over {PROFILED_EVALS} train steps (batch {b})",
+                averages)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="output/profile_torch_main_path.txt")
     parser.add_argument("--height", type=int, default=512)
     parser.add_argument("--width", type=int, default=512)
-    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="default 8 (inference), 3 (--train)")
     parser.add_argument("--family", choices=["sd2", "wukong", "glide"], default="sd2")
+    parser.add_argument("--train", action="store_true", help="profile a train step")
+    parser.add_argument("--lora", action="store_true", help="with --train: LoRA mode")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
@@ -151,6 +199,13 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.train:
+        if args.family == "glide":
+            parser.error("--train takes --family sd2 or wukong")
+        profile_train(args)
+        print(f"per-op table: {args.out}")
+        return 0
+    args.batch = args.batch or 8
     if args.family == "glide":
         profile_glide(args)
         print(f"per-op table: {args.out}")

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from minddiffusion_tpu_torch.models.layers import conv3x3_dispatch
-from minddiffusion_tpu_torch.ops import attention, flash_attention, glide_tail, winograd
+from minddiffusion_tpu_torch.ops import (attention, flash_attention, fused_ff, glide_tail,
+                                         gn_stats, winograd)
 
 
 @pytest.fixture
@@ -222,3 +223,176 @@ def test_glide_tail_raises_on_inputs_the_kernel_does_not_take(cuda):
     args[0] = torch.zeros(2, 8, 8, 36, device=cuda)
     with pytest.raises(TypeError):                            # fp32 h
         glide_tail.tail_step(*args)
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def grads_of(fn, inputs, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,exact", [(320, 5, False), (320, 8, True), (512, 1, True)])
+def test_packed_attention_gradient_bridge(cuda, c, heads, exact):
+    """K1 forward, einsum-attention backward, against autograd through the
+    plain version; the backward launches no kernel."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, go = (torch.randn(2, 1024, c, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = (c // heads) ** -0.5
+    before = flash_attention.flash_attention_packed.launches
+    got = grads_of(lambda a, b, d: flash_attention.flash_attention_packed(
+        a, b, d, heads, scale, exact), (q, k, v), go)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_packed.launches == before + 1
+    ref = grads_of(lambda a, b, d: flash_attention.packed_attention_plain(
+        a, b, d, heads, scale, exact), (q, k, v), go)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and rel_err(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 512])
+def test_flash_attention_gradient_bridge(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    heads = 1 if d == 512 else 4
+    q, go = (torch.randn(2, 300, heads, d, generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, 640, heads, d, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = flash_attention.flash_attention.launches
+    got = grads_of(lambda a, b, c: flash_attention.flash_attention(a, b, c, d ** -0.5),
+                   (q, k, v), go)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    ref = grads_of(lambda a, b, c: flash_attention.flash_attention_plain(a, b, c, d ** -0.5),
+                   (q, k, v), go)
+    for a, b in zip(got, ref):
+        assert rel_err(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gathered", [False, True])
+def test_winograd_gradient_bridge(cuda, gathered):
+    """K2 / K3 forward on fp32 master weights, direct-conv backward, against
+    autograd through the plain Winograd version; no kernel in the backward."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(2, 16, 16, 512, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(256, 512, 3, 3, generator=g, device=cuda) * (9 * 512) ** -0.5
+    b = 0.1 * torch.randn(256, generator=g, device=cuda)
+    go = torch.randn(2, 16, 16, 256, generator=g, device=cuda).to(torch.bfloat16)
+    counter = winograd.conv3x3_winograd_gathered if gathered else winograd.conv3x3_winograd
+    before = counter.launches
+    got = grads_of(lambda a, c, e: winograd.conv3x3_winograd_ad(a, c, e, gathered),
+                   (x, w, b), go)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+
+    def plain(a, c, e):
+        u = winograd.transform_weights(c.to(a.dtype).permute(2, 3, 1, 0)).to(a.dtype)
+        return (winograd.winograd_gathered_plain if gathered else winograd.winograd_plain)(
+            a, u, e)
+
+    ref = grads_of(plain, (x, w, b), go)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    for a, r in zip(got, ref):
+        assert rel_err(a, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_training_route_takes_the_bridge(cuda):
+    """conv3x3_dispatch with a weight that requires grad: GN+SiLU applied
+    elementwise, the kernel without its prologue, gradients reach every input."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(2, 16, 16, 512, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(64, 512, 3, 3, generator=g, device=cuda) * 0.02).requires_grad_(True)
+    b = torch.zeros(64, device=cuda, requires_grad=True)
+    gn = (1.0 + 0.1 * torch.randn(2, 512, generator=g, device=cuda),
+          0.1 * torch.randn(2, 512, generator=g, device=cuda))
+    y = conv3x3_dispatch(x, w, b, gn=gn)
+    with torch.no_grad():
+        ref = conv3x3_dispatch(x, w.to(torch.bfloat16), b, gn=gn)
+    assert rel_err(y.detach(), ref) <= 2e-2
+    y.float().square().mean().backward()
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0 and b.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_training_route_carries_the_gn_gradient(cuda):
+    """Only the GN affine requires grad: the conv still takes the training
+    route, and the gradient reaches mult and add."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 16, 16, 512, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(64, 512, 3, 3, generator=g, device=cuda) * 0.02
+    b = torch.zeros(64, device=cuda)
+    mult = (1.0 + 0.1 * torch.randn(2, 512, generator=g, device=cuda)).requires_grad_(True)
+    add = (0.1 * torch.randn(2, 512, generator=g, device=cuda)).requires_grad_(True)
+    y = conv3x3_dispatch(x, w, b, gn=(mult, add))
+    assert y.grad_fn is not None
+    y.float().square().mean().backward()
+    for t in (mult, add):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64, 64, 320), (3, 17, 9, 640), (2, 16, 16, 1280),
+                                   (1, 3, 5, 10)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_channel_sums_kernel_matches_plain(cuda, shape, transposed):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    if transposed:
+        x = x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+    before = gn_stats.channel_sums.launches
+    s1, s2 = gn_stats.channel_sums(x, transposed)
+    again = gn_stats.channel_sums(x, transposed)
+    torch.cuda.synchronize()
+    assert gn_stats.channel_sums.launches == before + 2
+    r1, r2 = gn_stats.channel_sums_plain(x)
+    assert rel_err(s1, r1) <= 1e-4 and rel_err(s2, r2) <= 1e-4
+    assert torch.equal(s1, again[0]) and torch.equal(s2, again[1])   # no atomics
+
+
+@pytest.mark.cuda
+def test_channel_sums_vjp(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 8, 8, 64, generator=g, device=cuda).to(torch.bfloat16)
+    g1, g2 = (torch.randn(2, 64, generator=g, device=cuda) for _ in range(2))
+    (dx,) = grads_of(lambda a: gn_stats.channel_sums(a), (x,), (g1, g2))
+    (ref,) = grads_of(lambda a: gn_stats.channel_sums_plain(a), (x,), (g1, g2))
+    assert dx.dtype == torch.bfloat16 and rel_err(dx, ref) <= 1e-2
+    with pytest.raises(ValueError, match="memory"):
+        gn_stats.channel_sums(x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(2, 300, 320), (1, 256, 640), (1, 100, 1280), (3, 1, 320)])
+def test_fused_ff_kernel_matches_plain(cuda, b, n, c):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    f = 4 * c
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    args = (rand(b, n, c).to(torch.bfloat16), 1.0 + 0.1 * rand(c), 0.1 * rand(c),
+            rand(2 * f, c) * c ** -0.5, 0.1 * rand(2 * f), rand(c, f) * f ** -0.5, 0.1 * rand(c))
+    before = fused_ff.fused_ln_geglu_ff.launches
+    got = fused_ff.fused_ln_geglu_ff(*args)
+    torch.cuda.synchronize()
+    assert fused_ff.fused_ln_geglu_ff.launches == before + 1
+    ref = fused_ff.fused_ff_plain(*args)
+    assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+    assert rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_fused_ff_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 8, 64, device=cuda, dtype=torch.bfloat16)
+    w = [torch.zeros(64, device=cuda), torch.zeros(64, device=cuda),
+         torch.zeros(512, 64, device=cuda), torch.zeros(512, device=cuda),
+         torch.zeros(64, 256, device=cuda), torch.zeros(64, device=cuda)]
+    with pytest.raises(ValueError, match="multiple of 320"):
+        fused_ff.fused_ln_geglu_ff(x, *w)
+    w[0] = w[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_ff.fused_ln_geglu_ff(x, *w)
