@@ -4,9 +4,9 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the six CUDA sources of the seven kernels from
-     minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu), one
-     nvcc each, all at once;
+  1. build the eight CUDA sources of the ten kernels from
+     minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu, K7's
+     two variants conv3x3.cu), one nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes, beside F.scaled_dot_product_attention on the same tensors;
   3. Winograd conv kernel (K2) vs its plain version at main-path shapes,
@@ -55,7 +55,26 @@ Phases (one line each; any failure raises and exits non-zero):
      and the same check with the gradient bridges taken out, which must fail;
  20. Wukong LoRA through cli/train.py (512^2, batch 3, 3 steps): only the
      adapters move, the adapter checkpoint reloads, the merged model's eps
-     agrees; one DreamBooth step through the same CLI.
+     agrees; one DreamBooth step through the same CLI;
+ 21. the implicit-GEMM conv kernel K7, v1 and v2, vs their plain versions at
+     bench_conv.py's UNet and VAE shapes, v2 also with its fused GN-affine +
+     SiLU prologue and residual, beside cuDNN's conv (the unfused chain for
+     the fused case);
+ 22. the Winograd F(4x4, 3x3) kernel K8 vs its plain version at the UNet's
+     32^2 x 640 site and the VAE decoder's shapes, its error against the
+     direct conv apart, beside cuDNN's conv; its gradient (direct-conv
+     backward) vs autograd through the plain version. No path launches K7
+     or K8 (the JAX package has none);
+ 23. GLIDE training at full width, fp32 master weights / bf16 compute: TG1
+     the base at 64 px batch 8, TG2 the super-res at 256 px batch 2 (s/step,
+     img/s, peak memory, launches per step, every tensor and the EMA moved),
+     and on TG1 the gradient of every UNet and xf param, kernel path vs
+     plain path, within 5e-2 relative L2 pooled and tensor by tensor, which
+     must fail both ways without the gradient bridges;
+ 24. the glide_train CLI at its defaults (batch 2): the base 3 steps and
+     --super_res 2 steps, {"params", "ema"} checkpoints that reload strictly,
+     the base's EMA loaded into the cascade, and the fallback tokens equal in
+     two processes.
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
@@ -69,7 +88,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -84,10 +105,11 @@ import torch.nn.functional as F
 REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
 KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered",
-           "glide_tail", "channel_sums", "fused_ff")
-# csrc/<name>.cu; K2 and K3 share one
+           "glide_tail", "channel_sums", "fused_ff", "conv3x3_v1", "conv3x3_gemm",
+           "winograd43")
+# csrc/<name>.cu; K2 and K3 share one, K7's two variants another
 SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail", "gn_stats",
-           "fused_ff")
+           "fused_ff", "conv3x3", "winograd43")
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
@@ -276,7 +298,8 @@ WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
 MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plain",
              "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain",
              "glide_tail": "glide_sr_256", "channel_sums": "16x64x64x320_bhwc",
-             "fused_ff": "ds1_16x4096x320"}
+             "fused_ff": "ds1_16x4096x320", "conv3x3_v1": "unet_32x32_640",
+             "conv3x3_gemm": "unet_32x32_640", "winograd43": "vae_512x512_128"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -322,13 +345,15 @@ def wrappers() -> dict:
     """The launch-counting wrapper of each kernel."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa, glide_tail, winograd as wg
 
-    from minddiffusion_tpu_torch.ops import fused_ff, gn_stats
+    from minddiffusion_tpu_torch.ops import conv3x3, fused_ff, gn_stats, winograd43
 
     return {"packed_attention": fa.flash_attention_packed,
             "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
             "winograd_gathered": wg.conv3x3_winograd_gathered,
             "glide_tail": glide_tail.tail_step, "channel_sums": gn_stats.channel_sums,
-            "fused_ff": fused_ff.fused_ln_geglu_ff}
+            "fused_ff": fused_ff.fused_ln_geglu_ff, "conv3x3_v1": conv3x3.conv3x3_pallas,
+            "conv3x3_gemm": conv3x3.conv3x3_gemm,
+            "winograd43": winograd43.conv3x3_winograd43}
 
 
 def reset_counts() -> None:
@@ -349,10 +374,8 @@ def read_counts() -> dict:
 # and 4 at 16^2, output side 6 at 16^2 and 6 at 32^2, and the two Upsample
 # convs that land at 16^2 and 32^2. The VAE decode adds one K1 launch (its
 # mid attention at 64^2); its convs run at 64^2 and above, outside the gate.
-PER_UNET_EVAL = {"packed_attention": 10, "winograd": 21, "flash_attention": 0,
-                 "winograd_gathered": 0, "glide_tail": 0, "channel_sums": 0, "fused_ff": 0}
-PER_DECODE = {"packed_attention": 1, "winograd": 0, "flash_attention": 0,
-              "winograd_gathered": 0, "glide_tail": 0, "channel_sums": 0, "fused_ff": 0}
+PER_UNET_EVAL = {k: {"packed_attention": 10, "winograd": 21}.get(k, 0) for k in KERNELS}
+PER_DECODE = {k: {"packed_attention": 1}.get(k, 0) for k in KERNELS}
 
 
 def sd2_models(gen: torch.Generator):
@@ -1416,6 +1439,405 @@ def phase20(tmp: str) -> "tuple[dict, dict]":
 
 
 
+CONV_CASES = [  # (label, B, H, W, C): benchmarks/research/bench_conv.py's shapes, C -> C
+    ("unet_64x64_320", 16, 64, 64, 320), ("unet_32x32_640", 16, 32, 32, 640),
+    ("unet_16x16_1280", 16, 16, 16, 1280), ("unet_8x8_1280", 16, 8, 8, 1280),
+    ("vae_64x64_512", 8, 64, 64, 512), ("vae_128x128_512", 8, 128, 128, 512),
+    ("vae_256x256_256", 8, 256, 256, 256), ("vae_512x512_128", 8, 512, 512, 128),
+]
+# v2 with its fused GN-affine + SiLU prologue and residual epilogue
+FUSED_CONV_CASES = [("fused_64x64_320", 16, 64, 64, 320), ("fused_32x32_640", 16, 32, 32, 640)]
+
+
+def conv_bound(b: int, h: int, w: int, ci: int, co: int, flops: float,
+               extra_bytes: float = 0.0) -> "tuple[float, str]":
+    """`flops` against reading x (bf16), the bf16 weights and the fp32 bias
+    once and writing y (bf16), plus `extra_bytes`."""
+    return bound(flops, 2.0 * b * h * w * (ci + co) + 2.0 * 9 * ci * co + 4.0 * co
+                 + extra_bytes)
+
+
+def cudnn_operands(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor):
+    """The NCHW view of NHWC x and the OIHW weight in channels-last memory,
+    both bf16, and the bf16 bias: cuDNN's conv on the kernels' inputs."""
+    w = kern.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return x.permute(0, 3, 1, 2), w, bias.to(torch.bfloat16)
+
+
+def phase21(gen: torch.Generator, table: dict) -> None:
+    """K7 v1 and v2 against their plain versions at bench_conv.py's eight
+    shapes (C -> C), beside cuDNN's bf16 channels-last conv; v2 with the
+    fused GN affine + SiLU prologue and the residual at the UNet's 64^2 and
+    32^2 widths, beside the unfused chain (affine + SiLU, cuDNN's conv, bias
+    + residual). No path launches K7 (the JAX package has none)."""
+    from minddiffusion_tpu_torch.ops import conv3x3 as cv
+
+    for label, b, h, w, c in CONV_CASES + FUSED_CONV_CASES:
+        x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+        kern = (torch.randn(3, 3, c, c, generator=gen, device="cuda")
+                * (9 * c) ** -0.5).to(torch.bfloat16)
+        bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+        x_cl, w_cl, bias16 = cudnn_operands(x, kern, bias)
+        flops = 2.0 * b * h * w * 9 * c * c
+        if label.startswith("fused"):
+            gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+            beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+            scale, shift = cv.groupnorm_affine_fold(x, gamma, beta)
+            res = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+            kw = dict(prologue_scale=scale, prologue_shift=shift, silu_prologue=True,
+                      residual=res)
+
+            def chain():
+                xa = F.silu(x.float() * scale[:, None, None, :] + shift[:, None, None, :])
+                y = F.conv2d(xa.to(torch.bfloat16).permute(0, 3, 1, 2), w_cl, padding=1)
+                return (y.permute(0, 2, 3, 1).float() + bias + res.float()).to(torch.bfloat16)
+
+            runs = [("conv3x3_gemm", lambda: cv.conv3x3_gemm(x, kern, bias, **kw),
+                     lambda: cv.conv3x3_gemm_plain(x, kern, bias, **kw), chain,
+                     2.0 * b * h * w * c + 8.0 * b * c)]
+        else:
+            def cudnn():
+                return F.conv2d(x_cl, w_cl, bias16, padding=1)
+
+            runs = [("conv3x3_v1", lambda: cv.conv3x3_pallas(x, kern, bias),
+                     lambda: cv.conv3x3_pallas_plain(x, kern, bias), cudnn, 0.0),
+                    ("conv3x3_gemm", lambda: cv.conv3x3_gemm(x, kern, bias),
+                     lambda: cv.conv3x3_gemm_plain(x, kern, bias), cudnn, 0.0)]
+        timed = {}
+        for name, kernel_fn, plain_fn, library_fn, extra in runs:
+            ref = plain_fn()
+            got = kernel_fn()
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), (name, label)
+            abs_err, err = errors(got, ref)
+            del ref
+            # v1 and v2 with no prologue are one launch of one kernel: timed once
+            if not timed:
+                timed = dict(ms=cuda_ms(kernel_fn), library_ms=cuda_ms(library_fn))
+            ms, library_ms = timed["ms"], timed["library_ms"]
+            plain_ms = cuda_ms(plain_fn, runs=3)
+            bound_ms, bound_by = conv_bound(b, h, w, c, c, flops, extra)
+            log(f"[phase 21] {name} {label} B={b} {h}x{w} {c}->{c} max_abs_err={abs_err:.3e} "
+                f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"{'unfused_chain' if extra else 'cudnn_conv'}_ms={library_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={flops / ms / 1e9:.1f}")
+            assert err <= REL_TOL, (name, label, err)
+            table[name]["cases"].append(
+                dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del x, kern, x_cl, w_cl
+        torch.cuda.empty_cache()
+
+
+WINO43_CASES = [  # (label, B, H, W, C_in, C_out)
+    ("unet_32x32_640", 16, 32, 32, 640, 640),     # bench_wino43_unet.py
+    ("vae_128x128_512", 8, 128, 128, 512, 512),   # the module header's VAE shapes
+    ("vae_256x256_256", 8, 256, 256, 256, 256),
+    ("vae_512x512_128", 8, 512, 512, 128, 128),
+    ("vae_256x256_512_256", 8, 256, 256, 512, 256),
+]
+WINO43_GRAD_CASE = (4, 128, 128, 256, 256)
+
+
+def phase22(gen: torch.Generator, table: dict) -> None:
+    """K8 (Winograd F(4x4, 3x3), U hoisted) against its plain F(4,3) at the
+    UNet's 32^2 x 640 site and the VAE decoder's shapes, beside cuDNN's
+    bf16 conv, with its error against the fp32 direct conv of the same bf16
+    operands reported apart; then the gradient of conv3x3_winograd43_ad
+    (direct-conv backward) against autograd through the plain F(4,3) at a
+    VAE shape. No path launches K8 (the JAX package has none)."""
+    from minddiffusion_tpu_torch.ops import winograd43 as w43
+
+    for label, b, h, w, ci, co in WINO43_CASES:
+        x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
+        kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
+        bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+        u = w43.transform_weights43(kern).to(torch.bfloat16).contiguous()
+        ref = w43.conv3x3_winograd43_plain(x, kern, bias, u)
+        got = w43.conv3x3_winograd43(x, kern, bias, u)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), label
+        abs_err, err = errors(got, ref)
+        del ref
+        x_cl, w_cl, bias16 = cudnn_operands(x, kern, bias)
+        direct = F.conv2d(x_cl.float(), w_cl.float(), bias, padding=1).permute(0, 2, 3, 1)
+        _, direct_err = errors(got, direct)
+        direct_l2 = ((got.float() - direct).norm() / direct.norm()).item()
+        del direct
+        ms = cuda_ms(lambda: w43.conv3x3_winograd43(x, kern, bias, u))
+        plain_ms = cuda_ms(lambda: w43.conv3x3_winograd43_plain(x, kern, bias, u), runs=3)
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, bias16, padding=1))
+        p = b * (h // 4) * (w // 4)
+        bound_ms, bound_by = bound(2.0 * 36 * p * ci * co,
+                                   2.0 * b * h * w * (ci + co) + 2.0 * 36 * ci * co + 4.0 * co)
+        log(f"[phase 22] winograd43 {label} B={b} {h}x{w} {ci}->{co} max_abs_err={abs_err:.3e} "
+            f"rel_err={err:.3e} vs_direct_fp32: max_rel={direct_err:.3e} rel_l2={direct_l2:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} cudnn_conv_ms={library_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
+        assert err <= REL_TOL, (label, err)
+        table["winograd43"]["cases"].append(
+            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 direct_conv_rel_l2=direct_l2))
+        del x, x_cl, w_cl, u
+        torch.cuda.empty_cache()
+    b, h, w, ci, co = WINO43_GRAD_CASE
+    x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
+    kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
+    bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+    g = torch.randn(b, h, w, co, generator=gen, device="cuda")
+    grads = []
+    for fn in (w43.conv3x3_winograd43_ad, w43.conv3x3_winograd43_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, kern, bias)]
+        y = fn(*leaves)
+        grads.append(torch.autograd.grad((y.float() * g).sum(), leaves))
+    rels = [((a.float() - r.float()).norm() / r.float().norm()).item()
+            for a, r in zip(*grads)]
+    log(f"[phase 22] winograd43 gradient {WINO43_GRAD_CASE}: rel_l2 of (x, kernel, bias) "
+        f"grads, direct-conv backward vs autograd through the plain F(4,3) = "
+        + ", ".join(f"{r:.3e}" for r in rels))
+    assert max(rels) <= 5e-2, rels
+    del x, kern, grads
+    torch.cuda.empty_cache()
+
+
+# GLIDE training (phases 23, 24), launches per step counted from the same
+# configs as GLIDE_PER_EVAL: a step runs one UNet forward (its K1 and K2
+# sites, whatever the batch: the route reads only Nq, Nk and C) and the xf
+# (128 tokens: einsum); the backward recomputes einsum attention and the
+# direct conv, so it launches no kernel. Base: K1 7, K2 21; super-res: K1 5,
+# K2 16.
+GLIDE_TRAIN = {"base": (8, 64), "super_res": (2, 256)}   # TG1, TG2: (batch, px)
+GLIDE_TRAIN_EMA = 0.9       # phase 23: one step moves the EMA far above its fp32 rounding
+GRAD_REL_L2 = 5e-2          # TG1: each part's and each tensor's gradient vs the plain path
+PATHS.update({
+    "glide_base_train_64_b8": (GLIDE_PER_EVAL["base"], {}, 1),
+    "glide_sr_train_256_b2": (GLIDE_PER_EVAL["super_res"], {}, 1),
+    "glide_train_cli_base_3steps": (GLIDE_PER_EVAL["base"], {}, 3),
+    "glide_train_cli_sr_2steps": (GLIDE_PER_EVAL["super_res"], {}, 2),
+})
+
+
+def glide_train_batch(gen: torch.Generator, b: int, size: int, super_res: bool) -> dict:
+    image = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda")
+    tokens, mask = glide_tokens(b, 128, 50001)
+    out = {"image": image.float() / 127.5 - 1.0, "tokens": tokens, "mask": mask,
+           "t": torch.randint(0, 1000, (b,), generator=gen, device="cuda"),
+           "weights": torch.ones(b, device="cuda")}
+    if super_res:
+        out["low_res"] = out["image"].reshape(b, 64, size // 64, 64, size // 64, 3).mean((2, 4))
+    return out
+
+
+def rel_l2(got: dict, ref: dict, names) -> float:
+    num = sum((got[n].float() - ref[n].float()).pow(2).sum() for n in names)
+    den = sum(ref[n].float().pow(2).sum() for n in names)
+    return (num / den).sqrt().item()
+
+
+def per_tensor_rel_l2(got: dict, ref: dict, names) -> dict:
+    """{name: ||got - ref|| / ||ref||}, one host sync for all of them (nan
+    where ref is all zero)."""
+    num = [(got[n].float() - ref[n].float()).norm() for n in names]
+    den = [ref[n].float().norm() for n in names]
+    return dict(zip(names, (torch.stack(num) / torch.stack(den)).tolist()))
+
+
+def phase23(gen: torch.Generator) -> dict:
+    """GLIDE training at full width, fp32 master weights under bf16 compute,
+    seeded random weights: TG1 the base at 64 px, batch 8; TG2 the
+    super-res at 256 px, batch 2. Each: a warm step, 3 timed steps (s/step,
+    img/s, peak memory, launches per step), the loss finite, every tensor
+    moved, the last step's EMA move against (1 - decay)(p - ema). On TG1
+    the gradient of every UNet and xf param on the kernel path against the
+    plain path's, pooled per part and tensor by tensor, passing, and failing
+    without the gradient bridges."""
+    from minddiffusion_tpu_torch import ops
+    from minddiffusion_tpu_torch.cli import glide_train as gt
+
+    counts_by_path = {}
+    for stage, path in (("base", "glide_base_train_64_b8"),
+                        ("super_res", "glide_sr_train_256_b2")):
+        sr = stage == "super_res"
+        b, size = GLIDE_TRAIN[stage]
+        torch.cuda.reset_peak_memory_stats()
+        ucfg, xcfg = gt.model_configs(sr, tiny=False)
+        model = gt.build_model(sr, ucfg, xcfg, "cuda", torch.bfloat16, seed=23)
+        state = gt.create_train_state(model, 1e-4, 0, 100_000)
+        schedule = gt.glide_schedule(sr)
+        step = gt.build_step(schedule, sr, GLIDE_TRAIN_EMA)
+        batch = glide_train_batch(gen, b, size, sr)
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        step(state, batch, 0)                                  # warm step
+        expected = expected_counts(path)
+        times, counts = [], None
+        for i in range(3):
+            if i == 2:
+                ema_before = {n: e.clone() for n, e in state.ema.items()}
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            metrics = step(state, batch, 0)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            counts = read_counts()
+            assert counts == expected, (stage, counts, expected)
+        host = {k: v.item() for k, v in metrics.items()}
+        assert all(map(math.isfinite, host.values())), host
+        params = state.params
+        moved = sum(not torch.equal(p, before[n]) for n, p in params.items())
+        del before
+        want = {n: torch.lerp(ema_before[n].double(), params[n].detach().double(),
+                              1.0 - GLIDE_TRAIN_EMA) - ema_before[n].double()
+                for n in params}
+        got = {n: state.ema[n].double() - ema_before[n].double() for n in params}
+        ema_err = rel_l2(got, want, list(params))
+        ema_moved = sum(not torch.equal(state.ema[n], ema_before[n]) for n in params)
+        del want, got, ema_before
+        s_step = statistics.median(times)
+        log(f"[phase 23] glide {stage} train {size}x{size} B={b} fp32 master / bf16 compute "
+            f"launches_per_step={counts} expected={expected} s_per_step={times} "
+            f"median_s={s_step:.4f} img_per_s={b / s_step:.4f} metrics={host} "
+            f"tensors_moved={moved}/{len(params)} ema_moved={ema_moved}/{len(params)} "
+            f"ema_step_rel_l2_vs_(1-decay)(p-ema)={ema_err:.3e} "
+            f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        assert moved == ema_moved == len(params), (moved, ema_moved, len(params))
+        assert ema_err <= 1e-3, ema_err
+        counts_by_path[path] = counts
+        if not sr:
+            hold_glide_gradients(state, schedule, batch, gt, ops)
+        del state, model, step, batch, params
+        torch.cuda.empty_cache()
+    return counts_by_path
+
+
+def hold_glide_gradients(state, schedule, batch: dict, gt, ops) -> None:
+    """TG1's gradient check (phase 19's P5 check on GLIDE, where K1's keys
+    and values carry the 128 xf tokens first)."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    noise = torch.randn(batch["image"].shape, generator=g, device="cuda")
+    reset_counts()
+    m_k, grads_k = gt.loss_and_grads(state, schedule, False, batch, noise)
+    counts_k = read_counts()
+    with ops.plain_reference():
+        m_p, grads_p = gt.loss_and_grads(state, schedule, False, batch, noise)
+    parts = {"unet": [n for n in grads_p if n.startswith("unet.")],
+                "xf": [n for n in grads_p if n.startswith("xf.")], "all": list(grads_p)}
+
+    def held(grads: dict) -> tuple:
+        """The pooled rel_l2 of each part; the count of tensors whose own
+        rel_l2 is above the limit (or undefined); the three worst tensors."""
+        each = per_tensor_rel_l2(grads, grads_p, parts["all"])
+        over = sum(not r <= GRAD_REL_L2 for r in each.values())
+        worst = sorted(each.items(), reverse=True,
+                       key=lambda kv: kv[1] if kv[1] == kv[1] else math.inf)
+        return ({k: rel_l2(grads, grads_p, names) for k, names in parts.items()}, over,
+                [(n, f"{r:.3e}") for n, r in worst[:3]])
+
+    rels, over, worst = held(grads_k)
+    zero_k = sum(int(not grads_k[n].any()) for n in grads_k)
+    log(f"[phase 23] TG1 gradient check: rel_l2 kernel vs plain path = "
+        + " ".join(f"{k}={v:.3e}" for k, v in rels.items())
+        + f"; per tensor: {over}/{len(grads_p)} above {GRAD_REL_L2}, worst {worst}"
+        + f" (loss {m_k['loss'].item():.6f} vs {m_p['loss'].item():.6f}; kernel-path "
+        f"launches {counts_k}; all-zero grads on the kernel path {zero_k}/{len(grads_k)})")
+    assert max(rels.values()) <= GRAD_REL_L2 and over == 0 and zero_k == 0, (
+        rels, over, worst, zero_k)
+    del grads_k
+    with without_gradient_bridges():
+        _, grads_b = gt.loss_and_grads(state, schedule, False, batch, noise)
+    rels_b, over_b, worst_b = held(grads_b)
+    zero_b = sum(int(not grads_b[n].any()) for n in grads_b)
+    log(f"[phase 23] TG1 gradient check without the gradient bridges: rel_l2 "
+        + " ".join(f"{k}={v:.3e}" for k, v in rels_b.items())
+        + f"; per tensor: {over_b}/{len(grads_p)} above {GRAD_REL_L2}, worst {worst_b}"
+        + f", all-zero grads {zero_b}/{len(grads_b)}")
+    assert rels_b["all"] > GRAD_REL_L2 and over_b > 0, (rels_b, over_b)
+
+
+def phase24(tmp: str) -> dict:
+    """`python -m minddiffusion_tpu_torch.cli.glide_train`'s main at its
+    defaults (batch 2, full-width models, CRC-32 fallback tokens): the base
+    for 3 steps and --super_res for 2, on 6 seeded PNGs under a TSV manifest.
+    Each checkpoint holds {"params", "ema"}, each loads strictly into a
+    fresh model; the base's EMA loads into the cascade; the fallback tokens
+    are the same in two processes with different PYTHONHASHSEED."""
+    import numpy as np
+    from PIL import Image
+
+    from minddiffusion_tpu_torch.cli import glide_train as gt
+    from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
+    from minddiffusion_tpu_torch.io.glide_weights import stage_state_dict
+    from minddiffusion_tpu_torch.pipelines.glide_cascade import GlideModels
+
+    rng = np.random.default_rng(24)
+    data = os.path.join(tmp, "glide_data")
+    os.makedirs(os.path.join(data, "imgs"))
+    rows = []
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 256, (300, 280, 3), dtype=np.uint8)).save(
+            os.path.join(data, "imgs", f"g{i}.png"))
+        rows.append(f"imgs/g{i}.png\t一只猫 a cat number {i}")
+    with open(os.path.join(data, "m.tsv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    manifests = os.path.join(data, "manifests.txt")
+    with open(manifests, "w") as f:
+        f.write(os.path.join(data, "m.tsv") + "\n")
+    counts_by_path = {}
+    for stage, path, steps, extra in (
+            ("base", "glide_train_cli_base_3steps", 3, []),
+            ("super_res", "glide_train_cli_sr_2steps", 2, ["--super_res"])):
+        out = os.path.join(tmp, f"glide_{stage}")
+        reset_counts()
+        t0 = time.time()
+        state = gt.main(["--image_caption_path_file", manifests, "--output_path", out,
+                         "--max_steps", str(steps), "--save_checkpoint_steps", str(steps),
+                         "--warmup_steps", "0", "--lr", "1e-4"] + extra)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        expected = expected_counts(path)
+        assert state.step == steps and counts == expected, (stage, state.step, counts, expected)
+        mgr = CheckpointManager(os.path.join(out, "ckpt"))
+        saved = mgr.restore_latest()
+        assert mgr.steps() == [1, steps] and set(saved) == {"params", "ema"}, mgr.steps()
+        assert all(torch.equal(saved["params"][n], p.detach().cpu())
+                   for n, p in state.params.items())
+        assert all(torch.equal(saved["ema"][n], e.cpu()) for n, e in state.ema.items())
+        del state
+        torch.cuda.empty_cache()
+        ucfg, xcfg = gt.model_configs(stage == "super_res", tiny=False)
+        fresh = gt.build_model(stage == "super_res", ucfg, xcfg, "cuda", torch.bfloat16, 0)
+        for tree in ("params", "ema"):
+            fresh.load_state_dict(saved[tree], strict=True)
+        del fresh
+        if stage == "base":
+            cascade = GlideModels.create(device="cuda", with_srgan=False)
+            cascade.load_state_dict({**cascade.state_dict(),
+                                    **stage_state_dict(saved["ema"], "base")})
+            w = cascade.base.unet.out_conv.weight
+            assert torch.equal(w.cpu(), saved["ema"]["unet.out_conv.weight"].to(w.dtype))
+            del cascade
+        log(f"[phase 24] glide_train {stage} {steps} steps batch 2 through the CLI: "
+            f"launches={counts} expected={expected} wall_s={wall:.2f} "
+            f"checkpoints={mgr.steps()} trees={sorted(saved)} tensors={len(saved['params'])} "
+            f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        counts_by_path[path] = counts
+        del saved
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    code = ("from minddiffusion_tpu_torch.cli.glide_train import fallback_tokens;"
+            "print(fallback_tokens('一只猫 a cat number 1', 128)[0][:8].tolist())")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(gt.__file__)))
+    outs = [subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           check=True, cwd=os.path.dirname(root),
+                           env=dict(os.environ, PYTHONHASHSEED=s)).stdout.strip()
+            for s in ("1", "2")]
+    log(f"[phase 24] fallback tokens under PYTHONHASHSEED 1 and 2: {outs[0]} / {outs[1]}")
+    assert outs[0] == outs[1], outs
+    return counts_by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1446,6 +1868,15 @@ def main() -> int:
         "fused_ff": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/fused_ff.cu",
             replaces="benchmarks/research/fused_ff.py:127", cases=[], held_in_phase=18),
+        "conv3x3_v1": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/conv3x3.cu",
+            replaces="benchmarks/research/conv3x3.py:90", cases=[], held_in_phase=21),
+        "conv3x3_gemm": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/conv3x3.cu",
+            replaces="benchmarks/research/conv3x3.py:286", cases=[], held_in_phase=21),
+        "winograd43": dict(
+            route="cuda", source="minddiffusion_tpu_torch/ops/csrc/winograd43.cu",
+            replaces="benchmarks/research/winograd43.py:203", cases=[], held_in_phase=22),
     }
     name = phase0()
     phase1()
@@ -1476,18 +1907,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         by_path["wukong_lora_512_b3_3steps"], by_path["wukong_dreambooth_512_b3_1step"] = \
             phase20(tmp)
+    phase21(gen, table)
+    phase22(gen, table)
+    by_path.update(phase23(gen))
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase24(tmp))
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
         runs = {p: counts[kname] for p, counts in by_path.items()}
         # launches: on the first path that runs the kernel (the 512^2 main
         # path for K1 and K2, the 768x1024 path for K4, path B for K3; 0 for
-        # K9, which no path runs and `held_in_phase` holds); every path's
+        # K5-K9, which no path runs and `held_in_phase` holds); every path's
         # count is in launches_by_path, and each was checked above
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
-        if "unfused_ms" in main_case:
-            extra["unfused_ms"] = main_case["unfused_ms"]
+        for key in ("unfused_ms", "direct_conv_rel_l2"):
+            if key in main_case:
+                extra[key] = main_case[key]
         kernels.append(dict(
             name=kname, route=rec["route"], source=rec["source"],
             replaces=rec["replaces"], launches=launches,

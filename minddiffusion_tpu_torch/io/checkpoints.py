@@ -2,8 +2,9 @@
 minddiffusion_tpu/io/checkpoints.py, which saves with orbax).
 
 What is saved is what the JAX loop saves: the params only, not the
-optimizer state (JAX train/loop.py:96-99), and in LoRA mode the adapters
-only (`trainable_only` with the LoRA set, the MindPet
+optimizer state (JAX train/loop.py:96-99; the GLIDE CLI saves {"params",
+"ema"}, two state dicts), and in LoRA mode the adapters only
+(`trainable_only` with the LoRA set, the MindPet
 TrainableParamsCheckPoint equivalent). A checkpoint is one file
 `<directory>/ckpt_<step:08d>.pt` holding a flat LDM-named state dict, moved
 to the CPU. `CheckpointManager` keeps orbax's save decision: the first
@@ -22,11 +23,17 @@ import torch
 _NAME = re.compile(r"^ckpt_(\d{8,})\.pt$")
 
 
+def _to_cpu(tree: Dict) -> Dict:
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.detach().cpu()
+            for k, v in tree.items()}
+
+
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
-    """Write `state_dict` (moved to the CPU) to `path` atomically."""
+    """Write `state_dict` (moved to the CPU; nested dicts of tensors too, as
+    GLIDE's {"params", "ema"}) to `path` atomically."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    torch.save(_to_cpu(state_dict), tmp)
     os.replace(tmp, path)
 
 

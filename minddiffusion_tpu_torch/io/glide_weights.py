@@ -15,6 +15,14 @@ out_layers.3, skip -> skip_connection); dense kernels (in, out) are
 transposed to (out, in) and conv kernels HWIO to OIHW. The SRGAN's
 BatchNorm keeps `scale` / `bias` and takes `mean` / `var` from
 `batch_stats`. Nothing here imports JAX.
+
+Training checkpoints: `train_checkpoint_from_jax` carries the JAX GLIDE
+CLI's {"params", "ema"} (two trees of one model) through the same map, and
+`stage_state_dict` keys either tree of a checkpoint of the port's
+`cli/glide_train.py` with the stage prefix GlideModels loads:
+
+    models.load_state_dict({**models.state_dict(),
+                            **stage_state_dict(ckpt["ema"], "base")})
 """
 from __future__ import annotations
 
@@ -69,3 +77,18 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         raise KeyError(f"unknown GLIDE stages {sorted(unknown)}; expected {STAGES}")
     return {f"{stage}.{k}": v for stage in STAGES if stage in params
             for k, v in variables_to_state_dict(params[stage]).items()}
+
+
+def train_checkpoint_from_jax(checkpoint: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX GLIDE CLI's {"params": variables, "ema": variables} of one
+    model -> {"params": state dict, "ema": state dict} in the port's names
+    (what the port's glide_train saves)."""
+    return {k: variables_to_state_dict(checkpoint[k]) for k in ("params", "ema")}
+
+
+def stage_state_dict(tree: Mapping, stage: str) -> Dict:
+    """One tree ("ema" or "params") of a glide_train checkpoint keyed with
+    the cascade's stage prefix ("base" or "super_res")."""
+    if stage not in STAGES[:2]:
+        raise KeyError(f"a glide_train checkpoint holds a diffusion stage, not {stage!r}")
+    return {f"{stage}.{k}": v for k, v in tree.items()}

@@ -19,6 +19,13 @@ v come back fp32.
   * Super-res: the low-res image bilinearly resized in fp32 (half-pixel
     centres, edge-clamped: torch's align_corners=False equals
     `jax.image.resize` when upsampling) and concatenated as [x, up].
+
+The activations run in `compute_dtype` (bf16 over fp32 master weights in
+training, as the JAX GLIDE configs' dtype=bf16 over fp32 params), or in the
+weights' dtype when it is None. Every Linear and conv casts its weight to
+the activation dtype at use; the norms compute in fp32 and return the
+activation dtype, as the JAX modules do. Setting `compute_dtype` on a
+Text2Im model sets it on its xf and its UNet.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from minddiffusion_tpu_torch.models.layers import (
-    Conv3x3, GroupNorm32, LayerNormFp32, hoisted_winograd, timestep_embedding)
+    Conv3x3, GroupNorm32, LayerNormFp32, Linear, hoisted_winograd, timestep_embedding)
 from minddiffusion_tpu_torch.models.unet import ResBlock
 from minddiffusion_tpu_torch.ops.attention import packed_attention
 from minddiffusion_tpu_torch.utils.flags import flags
@@ -53,11 +60,11 @@ class XfBlock(nn.Module):
         super().__init__()
         self.heads = heads
         self.ln_1 = LayerNormFp32(width)
-        self.qkv = nn.Linear(width, 3 * width)
-        self.out_proj = nn.Linear(width, width)
+        self.qkv = Linear(width, 3 * width)
+        self.out_proj = Linear(width, width)
         self.ln_2 = LayerNormFp32(width)
-        self.mlp_fc = nn.Linear(width, 4 * width)
-        self.mlp_proj = nn.Linear(4 * width, width)
+        self.mlp_fc = Linear(width, 4 * width)
+        self.mlp_proj = Linear(4 * width, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv(self.ln_1(x)).chunk(3, dim=-1)
@@ -72,17 +79,18 @@ class XfTextEncoder(nn.Module):
     def __init__(self, config: XfConfig, proj_dim: int):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype: Optional[torch.dtype] = None   # None: the weights' dtype
         self.token_embedding = nn.Parameter(torch.zeros(cfg.n_vocab, cfg.width))
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.text_ctx, cfg.width))
         self.padding_embedding = nn.Parameter(torch.zeros(cfg.text_ctx, cfg.width))
         for i in range(cfg.layers):
             self.add_module(f"block_{i}", XfBlock(cfg.width, cfg.heads))
         self.final_ln = LayerNormFp32(cfg.width)
-        self.transformer_proj = nn.Linear(cfg.width, proj_dim)
+        self.transformer_proj = Linear(cfg.width, proj_dim)
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor):
         cfg = self.config
-        dtype = self.transformer_proj.weight.dtype
+        dtype = self.compute_dtype or self.transformer_proj.weight.dtype
         tokens = torch.as_tensor(tokens).to(self.token_embedding.device, torch.int64)
         if cfg.debug_tokens and ((tokens < 0).any() or (tokens >= cfg.n_vocab).any()):
             raise ValueError(f"token id out of range [0, {cfg.n_vocab}): "
@@ -106,10 +114,10 @@ class GlideAttentionBlock(nn.Module):
         super().__init__()
         self.heads, self.attn_impl = heads, attn_impl
         self.norm = GroupNorm32(channels)
-        self.qkv = nn.Linear(channels, 3 * channels)
+        self.qkv = Linear(channels, 3 * channels)
         if encoder_channels is not None:
-            self.encoder_kv = nn.Linear(encoder_channels, 2 * channels)
-        self.proj_out = nn.Linear(channels, channels)
+            self.encoder_kv = Linear(encoder_channels, 2 * channels)
+        self.proj_out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -154,6 +162,7 @@ class GlideUNet(nn.Module):
     def __init__(self, config: GlideUNetConfig, encoder_channels: Optional[int]):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype: Optional[torch.dtype] = None   # None: the weights' dtype
         mc, emb_dim = cfg.model_channels, cfg.model_channels * 4
 
         def res(name, cin, cout, **kw):
@@ -203,8 +212,7 @@ class GlideUNet(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
-        h = x.to(self.in_conv.weight.dtype)
-        h = self.in_conv(h)
+        h = self.in_conv(x.to(self.compute_dtype or self.in_conv.weight.dtype))
         hs, ds = [h], 1
         last = len(cfg.channel_mult) - 1
         for level in range(len(cfg.channel_mult)):
@@ -243,22 +251,35 @@ class Text2ImUNet(nn.Module):
         self.unet_config, self.xf_config = unet_config, xf_config
         self.xf = XfTextEncoder(xf_config, mc * 4)
         self.unet = GlideUNet(unet_config, xf_config.width)
-        self.time_embed_0 = nn.Linear(mc, mc * 4)
-        self.time_embed_2 = nn.Linear(mc * 4, mc * 4)
+        self.time_embed_0 = Linear(mc, mc * 4)
+        self.time_embed_2 = Linear(mc * 4, mc * 4)
 
     @property
     def device(self) -> torch.device:
         return self.time_embed_0.weight.device
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        return self.unet.compute_dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self.xf.compute_dtype = self.unet.compute_dtype = dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activation dtype."""
+        return self.compute_dtype or self.time_embed_0.weight.dtype
 
     def encode_text(self, tokens, mask):
         return self.xf(tokens, mask)
 
     def _time_emb(self, timesteps: torch.Tensor) -> torch.Tensor:
         t_emb = timestep_embedding(timesteps, self.unet_config.model_channels)
-        return self.time_embed_2(F.silu(self.time_embed_0(t_emb.to(self.time_embed_0.weight.dtype))))
+        return self.time_embed_2(F.silu(self.time_embed_0(t_emb.to(self.dtype))))
 
     def denoise(self, x, timesteps, xf_proj, xf_out):
-        emb = self._time_emb(timesteps) + xf_proj.to(self.time_embed_0.weight.dtype)
+        emb = self._time_emb(timesteps) + xf_proj.to(self.dtype)
         return self.unet(x, emb, xf_out).chunk(2, dim=-1)
 
     def forward(self, x, timesteps, tokens, mask):

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface, so it compiles with nvcc
 alone (no PyTorch headers) in seconds: at first use into `_build/` next to
-this file, again whenever the source is newer than the library. Nothing is
+this file, again whenever the source or a shared `csrc/*.cuh` header is
+newer than the library. Nothing is
 built when the module is imported; the CPU path never calls `load`.
 """
 from __future__ import annotations
@@ -36,10 +37,12 @@ def nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu to _build/lib<name>.so unless it is up to date."""
+    """Compile csrc/<name>.cu to _build/lib<name>.so unless it is newer than
+    the source and every csrc/*.cuh header."""
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -141,13 +141,19 @@ class GlideModels:
             sr_schedule=respace_schedule(
                 sr_betas, space_timesteps(diffusion_steps, sr_respacing)))
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """Every stage's state dict in one, the stage as prefix."""
+        return {f"{stage}.{k}": v for stage, module in self.modules().items()
+                for k, v in module.state_dict().items()}
+
     def load_state_dict(self, state_dict: Dict[str, np.ndarray]) -> None:
-        """Strict load of a flat state dict whose keys carry the stage as
-        prefix ("base.", "super_res.", "srgan."; io/glide_weights.py)."""
+        """Strict load of a flat state dict (numpy arrays or tensors) whose
+        keys carry the stage as prefix ("base.", "super_res.", "srgan.";
+        io/glide_weights.py)."""
         used = set()
         for stage, module in self.modules().items():
             prefix = stage + "."
-            sub = {k[len(prefix):]: torch.as_tensor(np.asarray(v))
+            sub = {k[len(prefix):]: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                    for k, v in state_dict.items() if k.startswith(prefix)}
             used |= {prefix + k for k in sub}
             module.load_state_dict(sub, strict=True)

@@ -19,11 +19,19 @@ with no host sync (decoupled decay, eps outside the sqrt, as optax.adamw):
 `step(grads, finite)` applies it only where `finite` (a 0-d bool tensor) is
 true: otherwise torch's `found_inf` leaves the params, both moments and
 torch's step count as they were, and `count`, which the schedule reads,
-stays too (the JAX step's finite guard).
+stays too (the JAX step's finite guard). With `finite=None` every step
+applies, as a bare optax chain does.
+
+SD's configuration is the default (betas 0.9 / 0.98, wd 1e-6 on the decay
+set, the trainable mask, the guard). GLIDE's chain,
+optax.chain(clip_by_global_norm(1.0), adamw(lr)) (minddiffusion_tpu/cli/
+glide_train.py:104), is `AdamW(params, lr, **GLIDE_ADAMW)` stepped with no
+`finite`: every param trainable and decayed, betas 0.9 / 0.999, eps 1e-8,
+wd 1e-4.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Set
+from typing import Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 from torch import nn
@@ -31,6 +39,9 @@ from torch import nn
 from minddiffusion_tpu_torch.io.sd_weights import PREFIXES
 
 TRAINABLE_MODES = ("unet", "lora", "all", "unet+text")
+# optax.adamw's defaults over every param (the GLIDE train CLI)
+GLIDE_ADAMW = dict(weight_decay=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                   max_grad_norm=1.0, trainable=None)
 
 
 def named_parameters(modules: Dict[str, nn.Module]) -> Dict[str, nn.Parameter]:
@@ -66,16 +77,19 @@ class AdamW:
     """The JAX optimizer over `params` (LDM name -> parameter): a fused
     torch AdamW over the trainable ones (two groups: decay and no decay),
     its lr a device tensor set from the schedule at `count`, the number of
-    updates applied."""
+    updates applied. `trainable` None: every param trainable and decayed
+    (no mask, as a bare optax.adamw)."""
 
     def __init__(self, params: Dict[str, nn.Parameter], learning_rate: Callable,
                  weight_decay: float = 1e-6, beta1: float = 0.9, beta2: float = 0.98,
-                 eps: float = 1e-8, max_grad_norm: float = 1.0, trainable: str = "unet"):
-        self.trainable = sorted(trainable_names(params, trainable))
+                 eps: float = 1e-8, max_grad_norm: float = 1.0,
+                 trainable: Optional[str] = "unet"):
+        self.trainable = sorted(params if trainable is None
+                                else trainable_names(params, trainable))
         if not self.trainable:
             raise ValueError(f"no parameter is trainable under {trainable!r}")
         self.params = {n: params[n] for n in self.trainable}
-        decay = decay_names(self.params)
+        decay = set(self.params) if trainable is None else decay_names(self.params)
         self.schedule, self.max_norm = learning_rate, max_grad_norm
         device = next(iter(self.params.values())).device
         self.count = torch.zeros((), dtype=torch.int64, device=device)
@@ -87,9 +101,11 @@ class AdamW:
             eps=eps, fused=True)
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor], finite: torch.Tensor) -> None:
+    def step(self, grads: Dict[str, torch.Tensor],
+             finite: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update from `grads` (name -> gradient of every trainable name;
-        the trainable ones are clipped in place)."""
+        the trainable ones are clipped in place). Returns the global norm of
+        the trainable gradients before the clip."""
         gs = []
         for p, g in zip(self.params.values(), (grads[n] for n in self.trainable)):
             # the fused update walks a gradient in its param's memory order
@@ -100,13 +116,15 @@ class AdamW:
                                             self.max_norm / g_norm))
         self.lr.copy_(self.schedule(self.count))
         opt = self.torch_optimizer
-        opt.found_inf = (~finite).float()       # the attribute GradScaler sets
+        if finite is not None:
+            opt.found_inf = (~finite).float()   # the attribute GradScaler sets
         try:
             opt.step()
         finally:
-            del opt.found_inf
+            opt.__dict__.pop("found_inf", None)
             opt.zero_grad(set_to_none=True)
-        self.count += finite.to(torch.int64)
+        self.count += 1 if finite is None else finite.to(torch.int64)
+        return g_norm
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

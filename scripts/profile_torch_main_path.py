@@ -32,6 +32,10 @@ median) of the loss forward (VAE encode under no_grad, text encoder, UNet),
 of the forward plus the gradient of every UNet and text-encoder param, and
 of the whole step (the finite guard and the AdamW update added), and the
 step's wall ms against its summed device kernel ms under torch.profiler.
+`--train --family glide` does the same for the GLIDE train step of
+cli/glide_train.py (xf and UNet forward, the VLB + MSE loss; the gradient
+of every param; clip, AdamW and the EMA), for the base at 64 px (batch 8)
+and the super-res at 256 px (batch 2), `--batch` replacing both batches.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -179,13 +183,62 @@ def profile_train(args) -> None:
                 averages)
 
 
+def profile_glide_train(args) -> None:
+    from minddiffusion_tpu_torch.cli import glide_train as gt
+    from minddiffusion_tpu_torch.train.glide_loss import glide_diffusion_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mode = "w"
+    for stage, b, size in (("base", args.batch or 8, 64), ("super_res", args.batch or 2, 256)):
+        sr = stage == "super_res"
+        ucfg, xcfg = gt.model_configs(sr, tiny=False)
+        model = gt.build_model(sr, ucfg, xcfg, "cuda", torch.bfloat16, seed=0)
+        state = gt.create_train_state(model, 1e-4, 0, 100_000)
+        schedule = gt.glide_schedule(sr)
+        step = gt.build_step(schedule, sr, 0.9999)
+        image = torch.randint(0, 256, (b, size, size, 3), generator=gen, device="cuda")
+        tokens = torch.full((b, xcfg.text_ctx), xcfg.n_vocab - 1, device="cuda")
+        tokens[:, :12] = torch.arange(101, 113, device="cuda")
+        batch = {"image": image.float() / 127.5 - 1, "tokens": tokens,
+                 "mask": (tokens != xcfg.n_vocab - 1).long(),
+                 "t": torch.randint(0, 1000, (b,), generator=gen, device="cuda"),
+                 "weights": torch.ones(b, device="cuda")}
+        if sr:
+            batch["low_res"] = batch["image"].reshape(b, 64, 4, 64, 4, 3).mean((2, 4))
+        noise = torch.randn(image.shape, generator=gen, device="cuda")
+        low = (batch["low_res"],) if sr else ()
+
+        def forward():
+            return glide_diffusion_loss(
+                lambda x, t, tk, mk: model(x, t, *low, tk, mk), schedule, batch["image"],
+                batch["tokens"], batch["mask"], batch["t"], batch["weights"], noise)
+
+        print(f"glide {stage} train {size}x{size} batch {b}")
+        fwd_ms = cuda_ms(forward, runs=3)
+        grad_ms = cuda_ms(lambda: gt.loss_and_grads(state, schedule, sr, batch, noise), runs=3)
+        step_ms = cuda_ms(lambda: step(state, batch, 0), runs=3)
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, 0)
+        print(f"loss_forward_ms={fwd_ms:.3f} forward_and_grads_ms={grad_ms:.3f} "
+              f"step_ms={step_ms:.3f} img_per_s={b / step_ms * 1e3:.4f} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        wall, dev, averages = profiled(lambda: step(state, batch, 0), PROFILED_EVALS)
+        print(f"profiled train step: wall_ms={wall:.3f} device_kernel_ms={dev:.3f} "
+              f"idle_share={1 - dev / wall:.3f}")
+        write_table(args.out, f"per-op totals over {PROFILED_EVALS} GLIDE {stage} train "
+                    f"steps (batch {b})", averages, mode=mode)
+        mode = "a"
+        del state, model, step, batch
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="output/profile_torch_main_path.txt")
     parser.add_argument("--height", type=int, default=512)
     parser.add_argument("--width", type=int, default=512)
     parser.add_argument("--batch", type=int, default=None,
-                        help="default 8 (inference), 3 (--train)")
+                        help="default 8 (inference), 3 (--train), 8 and 2 (--train --family glide)")
     parser.add_argument("--family", choices=["sd2", "wukong", "glide"], default="sd2")
     parser.add_argument("--train", action="store_true", help="profile a train step")
     parser.add_argument("--lora", action="store_true", help="with --train: LoRA mode")
@@ -200,9 +253,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     if args.train:
-        if args.family == "glide":
-            parser.error("--train takes --family sd2 or wukong")
-        profile_train(args)
+        (profile_glide_train if args.family == "glide" else profile_train)(args)
         print(f"per-op table: {args.out}")
         return 0
     args.batch = args.batch or 8

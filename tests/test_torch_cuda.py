@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from minddiffusion_tpu_torch.models.layers import conv3x3_dispatch
-from minddiffusion_tpu_torch.ops import (attention, flash_attention, fused_ff, glide_tail,
-                                         gn_stats, winograd)
+from minddiffusion_tpu_torch.ops import (attention, conv3x3, flash_attention, fused_ff,
+                                         glide_tail, gn_stats, winograd, winograd43)
 
 
 @pytest.fixture
@@ -396,3 +396,78 @@ def test_fused_ff_raises_on_what_the_kernel_does_not_take(cuda):
     w[0] = w[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         fused_ff.fused_ln_geglu_ff(x, *w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co", [(2, 16, 16, 64, 64), (1, 13, 21, 40, 136),
+                                         (2, 8, 8, 256, 128), (1, 35, 70, 8, 16)])
+def test_conv3x3_kernels_match_plain(cuda, b, h, w, ci, co):
+    """K7 v1 and v2 (plain and with every fusion, bf16 and fp32 out) on
+    ragged tiles (H, W not multiples of 8, 16) and C not multiples of 32."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    x = rand(b, h, w, ci).to(torch.bfloat16)
+    kern, bias = (rand(3, 3, ci, co) * (9 * ci) ** -0.5).to(torch.bfloat16), 0.1 * rand(co)
+    cases = [(conv3x3.conv3x3_pallas, conv3x3.conv3x3_pallas_plain, {}),
+             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain, {}),
+             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain,
+              dict(prologue_scale=1.0 + 0.1 * rand(b, ci), prologue_shift=0.2 * rand(b, ci),
+                   silu_prologue=True, residual=rand(b, h, w, co).to(torch.bfloat16))),
+             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain,
+              dict(silu_prologue=True, out_dtype=torch.float32))]
+    for fn, plain, kw in cases:
+        before = fn.launches
+        got = fn(x, kern, bias, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = plain(x, kern, bias, **kw)
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert torch.isfinite(got.float()).all() and rel_err(got, ref) <= 2e-2, kw.keys()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co", [(2, 16, 16, 64, 64), (1, 12, 20, 40, 136),
+                                         (2, 32, 32, 128, 256)])
+def test_winograd43_kernel_matches_plain(cuda, b, h, w, ci, co):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(b, h, w, ci, generator=g, device=cuda).to(torch.bfloat16)
+    kern = torch.randn(3, 3, ci, co, generator=g, device=cuda) * (9 * ci) ** -0.5
+    bias = 0.1 * torch.randn(co, generator=g, device=cuda)
+    before = winograd43.conv3x3_winograd43.launches
+    got = winograd43.conv3x3_winograd43(x, kern, bias)
+    torch.cuda.synchronize()
+    assert winograd43.conv3x3_winograd43.launches == before + 1
+    ref = winograd43.conv3x3_winograd43_plain(x, kern, bias)
+    assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+    assert rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_winograd43_gradient_bridge(cuda):
+    """The kernel forward with the direct-conv backward: the gradient of x,
+    the fp32 kernel and the bias against autograd through the plain F(4,3)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(2, 16, 16, 64, generator=g, device=cuda).to(torch.bfloat16)
+    kern = torch.randn(3, 3, 64, 32, generator=g, device=cuda) * 0.05
+    bias = 0.1 * torch.randn(32, generator=g, device=cuda)
+    cot = torch.randn(2, 16, 16, 32, generator=g, device=cuda)
+    grads = []
+    for fn in (winograd43.conv3x3_winograd43_ad, winograd43.conv3x3_winograd43_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, kern, bias)]
+        grads.append(torch.autograd.grad((fn(*leaves).float() * cot).sum(), leaves))
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        assert ((got.float() - ref.float()).norm() / ref.float().norm()).item() <= 5e-2
+
+
+@pytest.mark.cuda
+def test_conv_kernels_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="% 8 == 0"):
+        conv3x3.conv3x3_pallas(x, torch.zeros(3, 3, 12, 16, device=cuda))
+    with pytest.raises(ValueError, match="bf16"):
+        conv3x3.conv3x3_gemm(x.float(), torch.zeros(3, 3, 12, 16, device=cuda))
+    with pytest.raises(ValueError, match="H, W % 4 == 0"):
+        winograd43.conv3x3_winograd43(torch.zeros(1, 6, 8, 16, device=cuda,
+                                                  dtype=torch.bfloat16),
+                                      torch.zeros(3, 3, 16, 16, device=cuda))

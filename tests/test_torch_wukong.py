@@ -56,7 +56,18 @@ def test_packed_attention_plain_matches_pallas_at_sd1_head_dims(d, exact):
     ref = jax_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, 8,
                      exact=exact, interpret=True)
     got = flash_attention.packed_attention_plain(tp.t(q), tp.t(k), tp.t(v), 8, scale, exact)
-    assert_rel(got.numpy(), ref, 1e-5)
+    # the float64 answer of the same math (q scaled and rounded to fp32 as
+    # both legs round it), so a failure says which leg left it
+    qh, kh, vh = (a.astype(np.float64).reshape(256, 8, d).transpose(1, 0, 2)
+                  for a in ((q * np.float32(scale)).astype(np.float32), k, v))
+    s = qh @ kh.transpose(0, 2, 1)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    ref64 = ((p / p.sum(-1, keepdims=True)) @ vh).transpose(1, 0, 2).reshape(1, 256, 8 * d)
+    off = {leg: float(np.abs(np.asarray(a, np.float64) - ref64).max() / np.abs(ref64).max())
+           for leg, a in (("port", got.numpy()), ("jax", ref))}
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5 * np.abs(np.asarray(ref)).max(),
+                               err_msg=f"max error relative to max |float64 answer|: {off}")
 
 
 @pytest.mark.parametrize("d", SD1_HEAD_DIMS)
