@@ -4,9 +4,10 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the eight CUDA sources of the ten kernels from
+  1. build the nine CUDA sources of the fifteen kernels from
      minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu, K7's
-     two variants conv3x3.cu), one nvcc each, all at once;
+     two variants conv3x3.cu, K10a-d and K11 attn_variants.cu), one nvcc
+     each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes, beside F.scaled_dot_product_attention on the same tensors;
   3. Winograd conv kernel (K2) vs its plain version at main-path shapes,
@@ -74,11 +75,33 @@ Phases (one line each; any failure raises and exits non-zero):
  24. the glide_train CLI at its defaults (batch 2): the base 3 steps and
      --super_res 2 steps, {"params", "ema"} checkpoints that reload strictly,
      the base's EMA loaded into the cascade, and the fallback tokens equal in
-     two processes.
+     two processes;
+ 25. SD2 serving at the main path's config (512^2, DDIM-50, CFG 9.0, batch
+     8) through cli/serve's engine builder with a stated toy tokenizer (the
+     CLIP vocab is not in the repository), behind the HTTP front end on a
+     thread: 200s with 512^2 PNGs, a co-batched request bytewise equal to
+     the same request served alone, launches = batches x (K1 501, K2 1050),
+     no synchronising call inside `dispatch`; s/batch and img/s over three
+     back-to-back batches, request latency, PNG time, and the device's idle
+     gap after each batch (CUDA-only profiler);
+ 26. GLIDE serving: the engine at batch 8 on the cascade to the SRGAN with
+     the placeholder tokens (no sentencepiece model in the repository),
+     1024^2 PNGs, row_seeds invariance (co-batched == solo, bytewise),
+     launches = batches x (K1 555, K2 1692); then `python -m
+     minddiffusion_tpu_torch.cli.serve --family glide` in a subprocess
+     answers one request and exits on SIGTERM;
+ 27. the packed-attention variants K10a (host ones fold), K10b (in-kernel
+     fold), K10c (projections fused), K10d (output projection fused) and
+     K11 (K10a's function over its kernel) vs their plain versions at the
+     SD2 UNet's ds1 / ds2 shapes and bench_attention.py's, a ragged Nq, Nk
+     77 and Nq + 128, C_out != C, both softmax modes; beside SDPA's flash
+     backend or the unfused chain, and K1 at the same shape. No path of
+     either package launches them.
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
 The library calls are timing yardsticks only; the port never calls them.
+K5-K11 have no path: their JSON rows report launches 0 and `held_in_phase`.
 Each path runs with the launch counters set to 0 just before it and read
 just after, held against counts derived by hand from the SD2 and SD1
 configs (for training: per step). The line before the last is the kernel table as JSON; the last
@@ -90,11 +113,13 @@ import contextlib
 import json
 import math
 import os
+import queue
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -106,10 +131,12 @@ REL_TOL = 2e-2          # bf16 tolerance, relative to max |reference|
 WARMUP, RUNS = 2, 7
 KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered",
            "glide_tail", "channel_sums", "fused_ff", "conv3x3_v1", "conv3x3_gemm",
-           "winograd43")
-# csrc/<name>.cu; K2 and K3 share one, K7's two variants another
+           "winograd43", "attn_ones", "attn_fold", "attn_proj", "attn_out",
+           "ones_attention")
+# csrc/<name>.cu; K2 and K3 share one, K7's two variants another, K10a-d and
+# K11 attn_variants.cu
 SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail", "gn_stats",
-           "fused_ff", "conv3x3", "winograd43")
+           "fused_ff", "conv3x3", "winograd43", "attn_variants")
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 # fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
@@ -299,7 +326,10 @@ MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plai
              "flash_attention": "unet_ds1_768x1024", "winograd_gathered": "32x32_1280_plain",
              "glide_tail": "glide_sr_256", "channel_sums": "16x64x64x320_bhwc",
              "fused_ff": "ds1_16x4096x320", "conv3x3_v1": "unet_32x32_640",
-             "conv3x3_gemm": "unet_32x32_640", "winograd43": "vae_512x512_128"}
+             "conv3x3_gemm": "unet_32x32_640", "winograd43": "vae_512x512_128",
+             "attn_ones": "ds1_16x4096x320", "attn_fold": "ds1_16x4096x320",
+             "attn_proj": "ds1_16x4096x320", "attn_out": "ds1_16x4096x320",
+             "ones_attention": "ds1_16x4096x320"}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -345,7 +375,8 @@ def wrappers() -> dict:
     """The launch-counting wrapper of each kernel."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa, glide_tail, winograd as wg
 
-    from minddiffusion_tpu_torch.ops import conv3x3, fused_ff, gn_stats, winograd43
+    from minddiffusion_tpu_torch.ops import attn_variants as av, conv3x3, fused_ff, gn_stats
+    from minddiffusion_tpu_torch.ops import winograd43
 
     return {"packed_attention": fa.flash_attention_packed,
             "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
@@ -353,7 +384,11 @@ def wrappers() -> dict:
             "glide_tail": glide_tail.tail_step, "channel_sums": gn_stats.channel_sums,
             "fused_ff": fused_ff.fused_ln_geglu_ff, "conv3x3_v1": conv3x3.conv3x3_pallas,
             "conv3x3_gemm": conv3x3.conv3x3_gemm,
-            "winograd43": winograd43.conv3x3_winograd43}
+            "winograd43": winograd43.conv3x3_winograd43,
+            "attn_ones": av.flash_attention_packed_ones,
+            "attn_fold": av.flash_attention_packed_fold,
+            "attn_proj": av.flash_attention_packed_proj,
+            "attn_out": av.flash_attention_packed_out, "ones_attention": av.ones_attention}
 
 
 def reset_counts() -> None:
@@ -417,8 +452,9 @@ def phase4(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
-def phase5() -> dict:
-    """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16."""
+def phase5() -> "tuple[dict, float]":
+    """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16.
+    Returns the launch counts and the seconds of the second run."""
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
     batch, size, steps = 8, 512, 50
@@ -449,7 +485,7 @@ def phase5() -> dict:
         f"launches={counts} expected={expected} first_run_s={first_s:.3f} "
         f"s_per_batch={batch_s:.3f} img_per_s={batch / batch_s:.4f} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    return counts
+    return counts, batch_s
 
 
 FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
@@ -1838,6 +1874,433 @@ def phase24(tmp: str) -> dict:
     return counts_by_path
 
 
+# ---- serving (phases 25, 26) ---------------------------------------------
+
+SERVE_BATCH = 8
+SERVE_PROMPT = "a photograph of an astronaut riding a horse"
+
+
+def toy_tokenize(prompt: str):
+    """The stated stand-in for the CLIP BPE (its vocab file is not in the
+    repository): SOT, each character hashed into [1, 49405), EOT, zeros to
+    77. Different prompts get different ids; nothing reads them as words."""
+    import numpy as np
+
+    ids = [49406] + [(7 * ord(ch) + 3) % 49404 + 1 for ch in prompt][:75] + [49407]
+    return np.asarray(ids + [0] * (77 - len(ids)), np.int32)
+
+
+def http_post(port: int, body: dict, timeout: float = 600.0) -> "tuple[int, dict, float]":
+    """(status, reply, seconds) of POST /v1/txt2img."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/txt2img",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read()), time.time() - t0
+
+
+def http_get(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def decode_png(reply: dict):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(reply["image_png_b64"]))))
+
+
+def post_all(port: int, bodies: list) -> list:
+    """Post every body at once, one thread each; [(status, reply, s)]."""
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(lambda body: http_post(port, body), bodies))
+
+
+def sync_sites(fn) -> list:
+    """Where `fn` makes a synchronising CUDA call (torch's sync debug mode):
+    the file:line of the Python frame of each."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def device_gaps(prof) -> "tuple[float, list]":
+    """(device idle share of the profiled window, the idle ms after each
+    device-to-host copy): the engine's batches end in the uint8 result's
+    DtoH copy, so the gap after one is the device's wait between batches."""
+    from torch.autograd import DeviceType
+
+    acts = sorted((e.start_ns(), e.end_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
+    busy, run_start, run_end, gaps = 0, acts[0][0], acts[0][1], []
+    for i, (s, e, name) in enumerate(acts):
+        if s > run_end:
+            busy += run_end - run_start
+            run_start, run_end = s, e
+        else:
+            run_end = max(run_end, e)
+        if "DtoH" in name and i + 1 < len(acts):
+            gaps.append(max(0, acts[i + 1][0] - e) / 1e6)
+    busy += run_end - run_start
+    return 1.0 - busy / (acts[-1][1] - acts[0][0]), gaps
+
+
+def serve_args(argv: list):
+    from minddiffusion_tpu_torch.cli import serve
+
+    return serve.build_argparser().parse_args(argv)
+
+
+def phase25(phase5_s: float) -> dict:
+    """SD2 serving at the main path's config (512^2, DDIM-50, CFG 9.0, batch
+    8, bf16, raw-exp, seeded random weights) built by cli/serve's
+    _build_sd_engine with `toy_tokenize`, behind make_server on a thread."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from minddiffusion_tpu_torch.cli import serve
+    from minddiffusion_tpu_torch.serving import make_server
+
+    engine, desc = serve._build_sd_engine(
+        serve_args(["--family", "sd2", "--batch_size", str(SERVE_BATCH)]), toy_tokenize)
+    adapter = engine.adapter
+    engine.start()
+    srv = make_server(engine, "127.0.0.1", 0, info={"family": "sd2", "config": desc})
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        warm = http_post(port, {"prompt": "warm", "seed": 0})
+        # one dispatch straight through the idle engine's adapter, under
+        # torch's sync debug mode
+        rows = [adapter.prepare(SERVE_PROMPT, "", s) for s in range(SERVE_BATCH)]
+        assert sync_sites(lambda: torch.ones(1, device="cuda").item()), "sync detector is blind"
+        syncs = sync_sites(lambda: adapter.dispatch(rows))
+        torch.cuda.synchronize()
+        assert not syncs, f"dispatch waits on the device at {syncs}"
+        reset_counts()
+        batches0 = engine.batches_run
+        solo = http_post(port, {"prompt": SERVE_PROMPT, "seed": 7})
+        bodies = [{"prompt": f"request {i}", "seed": 100 + i, "negative_prompt": "blurry"}
+                  for i in range(11)]
+        bodies.insert(5, {"prompt": SERVE_PROMPT, "seed": 7})
+        replies = post_all(port, bodies)
+        counts, batches = read_counts(), engine.batches_run - batches0
+        health = http_get(port, "/healthz")
+        for status, reply, _ in [warm, solo] + replies:
+            assert status == 200, reply
+            assert decode_png(reply).shape == (512, 512, 3)
+        co = decode_png(replies[5][1])
+        assert np.array_equal(co, decode_png(solo[1])), "co-batched request differs from solo"
+        assert not np.array_equal(decode_png(replies[0][1]), decode_png(replies[1][1]))
+        assert health["requests_served"] == 14 == engine.requests_served, health
+        expected = {k: batches * (501 if k == "packed_attention" else
+                                  1050 if k == "winograd" else 0) for k in KERNELS}
+        assert counts == expected, (counts, expected)
+        latencies = sorted(s for _, _, s in replies)
+        png_ms = host_ms(lambda: encode_png(co))
+
+        # saturation: 3 full batches back to back, straight into the engine
+        n = 3 * SERVE_BATCH
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            with ThreadPoolExecutor(n) as pool:
+                imgs = list(pool.map(lambda i: engine.submit(f"load {i}", "", 1000 + i,
+                                                             timeout=600), range(n)))
+            wall = time.time() - t0
+        idle, gaps = device_gaps(prof)
+        assert all(img.shape == (512, 512, 3) for img in imgs)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+    log(f"[phase 25] serve sd2 {desc} b{SERVE_BATCH} over HTTP: 14 requests, 13 of them in "
+        f"{batches} counted batches, launches={counts} (batches x K1 501, K2 1050), "
+        f"co-batched == solo, "
+        f"p50_latency_s={statistics.median(latencies):.3f} max_latency_s={latencies[-1]:.3f} "
+        f"solo_s={solo[2]:.3f} png_encode_ms={png_ms:.2f} synchronising calls in "
+        f"dispatch: {len(syncs)}")
+    log(f"[phase 25] saturation: {n} requests, 3 batches in {wall:.3f} s: "
+        f"s_per_batch={wall / 3:.3f} (phase 5: {phase5_s:.3f}) img_per_s={n / wall:.4f} "
+        f"device_idle_share={idle:.4f} gaps_after_each_batch_ms="
+        + ",".join(f"{g:.3f}" for g in gaps))
+    del engine, adapter
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encode_png(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host ms of `fn` (host work, no device)."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase26() -> dict:
+    """GLIDE serving. (i) in-process: cli/serve's _build_glide_engine at batch
+    8 with the placeholder tokens (no sentencepiece model in the
+    repository), the default cascade to the SRGAN, behind make_server;
+    row_seeds invariance and launch counts. (ii) the entry point itself:
+    `python -m minddiffusion_tpu_torch.cli.serve --family glide` in a
+    subprocess answers one request and stops on SIGTERM."""
+    import numpy as np
+
+    from minddiffusion_tpu_torch.cli import serve
+    from minddiffusion_tpu_torch.serving import make_server
+
+    engine, desc = serve._build_glide_engine(
+        serve_args(["--family", "glide", "--batch_size", str(SERVE_BATCH)]))
+    engine.start()
+    srv = make_server(engine, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        reset_counts()
+        solo = http_post(port, {"prompt": "一只猫", "seed": 7})
+        bodies = [{"prompt": f"请求 {i}", "seed": 200 + i} for i in range(SERVE_BATCH - 1)]
+        bodies.insert(3, {"prompt": "一只猫", "seed": 7, "negative_prompt": "模糊"})
+        t0 = time.time()
+        replies = post_all(port, bodies)
+        batch_s = time.time() - t0
+        counts, batches = read_counts(), engine.batches_run
+        for status, reply, _ in [solo] + replies:
+            assert status == 200, reply
+            assert decode_png(reply).shape == (1024, 1024, 3)
+        assert replies[3][1]["ignored"] == ["negative_prompt"]
+        co = decode_png(replies[3][1])
+        assert np.array_equal(co, decode_png(solo[1])), "row_seeds: co-batched != solo"
+        assert not np.array_equal(decode_png(replies[0][1]), co)
+        expected = {k: batches * (555 if k == "packed_attention" else
+                                  1692 if k == "winograd" else 0) for k in KERNELS}
+        assert counts == expected, (counts, expected)
+        png_ms = host_ms(lambda: encode_png(co))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+    log(f"[phase 26] serve glide {desc} b{SERVE_BATCH}: {len(bodies) + 1} requests in "
+        f"{batches} batches, launches={counts} (batches x K1 555, K2 1692), row_seeds "
+        f"co-batched == solo, solo_s={solo[2]:.3f} s_per_batch={batch_s:.3f} "
+        f"png_encode_1024_ms={png_ms:.2f} (x8 per batch on the handler threads)")
+    del engine
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minddiffusion_tpu_torch.cli.serve", "--family", "glide",
+         "--batch_size", "2", "--host", "127.0.0.1", "--port", "0"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout],
+                     daemon=True).start()
+    try:
+        port, seen = None, []
+        while port is None:
+            try:
+                seen.append(lines.get(timeout=max(1.0, t0 + 300 - time.time())))
+            except queue.Empty:
+                raise AssertionError("serve CLI not listening after 300 s:\n"
+                                     + "".join(seen[-20:])) from None
+            if "listening on" in seen[-1]:
+                port = int(seen[-1].rsplit(":", 1)[1])
+        ready_s = time.time() - t0
+        status, reply, req_s = http_post(port, {"prompt": "一只猫", "seed": 3})
+        assert status == 200 and decode_png(reply).shape == (1024, 1024, 3)
+        health = http_get(port, "/healthz")
+        assert health["requests_served"] == 2, health   # its warm-up and this request
+    finally:
+        proc.terminate()
+        code = proc.wait(timeout=60)
+    log(f"[phase 26] cli/serve --family glide --batch_size 2 in a subprocess: listening "
+        f"after {ready_s:.1f} s, one request 200 (1024x1024 PNG) in {req_s:.3f} s, "
+        f"healthz={health}, exit code after SIGTERM {code}")
+    return counts
+
+
+# ---- K10 / K11 (phase 27) ---------------------------------------------------
+
+VARIANT_CASES = [  # (label, B, Nq, Nk, C, exact): K10a, K10b and K10d
+    ("ds1_16x4096x320", 16, 4096, 4096, 320, False),
+    ("ds2_16x1024x640", 16, 1024, 1024, 640, False),
+    ("ds2_16x1024x640_exact", 16, 1024, 1024, 640, True),
+    ("ragged_nq1000_nk77", 8, 1000, 77, 320, True),
+    ("nk_nq_plus_128", 16, 1024, 1152, 384, True),
+]
+PROJ_CASES = [("ds1_16x4096x320", 16, 4096, 320, False), ("ds2_16x1024x640", 16, 1024, 640, False),
+              ("ds2_16x1024x640_exact", 16, 1024, 640, True)]
+OUT_EXTRA_CASES = [("ds2_c640_to_c320", 16, 1024, 1024, 640, False, 320)]
+K11_CASES = [  # bench_attention.py:111-113 (exact, as its main runs `ones`), a ragged Nq
+    ("ds1_16x4096x320", 16, 4096, 4096, 320, True),
+    ("ds2_16x1024x640", 16, 1024, 1024, 640, True),
+    ("ds4_16x256x1280", 16, 256, 256, 1280, True),
+    ("ds1_16x4096x320_fast", 16, 4096, 4096, 320, False),
+    ("ragged_nq4000", 2, 4000, 4000, 320, False),
+]
+VARIANT_SOURCE = "minddiffusion_tpu_torch/ops/csrc/attn_variants.cu"
+VARIANT_REPLACES = {
+    "attn_ones": "benchmarks/research/attn_variants.py:86",
+    "attn_fold": "benchmarks/research/attn_variants.py:183",
+    "attn_proj": "benchmarks/research/attn_variants.py:292",
+    "attn_out": "benchmarks/research/attn_variants.py:386",
+    "ones_attention": "benchmarks/bench_attention.py:76",
+}
+
+
+def variant_bound(b: int, nq: int, nk: int, c: int, proj_flops: float = 0.0,
+                  nbytes: "float | None" = None) -> "tuple[float, str, str]":
+    """attention_bound at D 64 with the projections' bf16 flops added to the
+    tensor-core term; `nbytes` replaces the HBM term's bytes (q, k, v read
+    and the output written once, in bf16) where the inputs differ."""
+    heads = c // 64
+    ms, by = bound(4.0 * b * nq * nk * c + proj_flops,
+                   2.0 * b * c * (2 * nq + 2 * nk) if nbytes is None else nbytes)
+    exp_ms = b * heads * nq * nk / CARD["exp_per_s"] * 1e3
+    if exp_ms > ms:
+        return exp_ms, "operations", "exp"
+    return ms, by, "mma" if by == "operations" else "bytes"
+
+
+def phase27(gen: torch.Generator, table: dict) -> None:
+    """K10a-d and K11 against their plain versions at the SD2 UNet's ds1 and
+    ds2 self-attention shapes and bench_attention.py's, with a ragged Nq,
+    Nk 77 and Nk = Nq + 128, C_out != C, both softmax modes; beside SDPA
+    (K10a, K10b, K11), the unfused chain (K10c: three input projections +
+    SDPA + the output projection; K10d: SDPA + the output projection) and
+    K1 at the same shape where K1 takes it (Nk % 64 == 0). No path of either
+    package launches them."""
+    from minddiffusion_tpu_torch.ops import attn_variants as av, flash_attention as fa
+
+    def run_case(name, label, b, nq, nk, c, exact, kernel_fn, plain_fn, library_fn,
+                 k1_fn, bnd):
+        ref = plain_fn()
+        got = kernel_fn()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), (name, label)
+        abs_err, err = errors(got, ref)
+        del ref
+        ms = cuda_ms(kernel_fn)
+        plain_ms = cuda_ms(plain_fn, runs=3)
+        library_ms = cuda_ms(library_fn, runs=5)
+        k1_ms = cuda_ms(k1_fn, runs=5) if k1_fn is not None else None
+        bound_ms, bound_by, term = bnd
+        log(f"[phase 27] {name} {label} B={b} Nq={nq} Nk={nk} C={c} exact={exact} "
+            f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"k1_ms={'n/a' if k1_ms is None else f'{k1_ms:.4f}'} "
+            f"bound_ms={bound_ms:.4f} ({term})")
+        assert err <= REL_TOL, (name, label, err)
+        table[name]["cases"].append(
+            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bound_term=term, k1_ms=k1_ms))
+
+    def sdpa(q, k, v, heads, scale):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        views = [t.view(t.shape[0], -1, heads, 64).transpose(1, 2) for t in (q, k, v)]
+
+        def call():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                o = F.scaled_dot_product_attention(*views, scale=scale)
+            return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], -1)
+        return call
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for label, b, nq, nk, c, exact, *c_out in (VARIANT_CASES + OUT_EXTRA_CASES):
+        heads, scale = c // 64, 0.125
+        q, k, v = (randn(b, n, c).to(torch.bfloat16) for n in (nq, nk, nk))
+        attn = sdpa(q, k, v, heads, scale)
+        k1 = ((lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
+              if nk % 64 == 0 else None)
+        att = variant_bound(b, nq, nk, c)
+        if not c_out:
+            for name, fn in (("attn_ones", av.flash_attention_packed_ones),
+                             ("attn_fold", av.flash_attention_packed_fold)):
+                run_case(name, label, b, nq, nk, c, exact,
+                         lambda fn=fn: fn(q, k, v, scale, heads, exact),
+                         lambda: av.attn_ones_plain(q, k, av.augment_v(v, heads), scale,
+                                                    heads, exact), attn, k1, att)
+        co = c_out[0] if c_out else c
+        wo = (randn(c, co) * c ** -0.5).to(torch.bfloat16)
+        bo = 0.1 * randn(co)
+        run_case("attn_out", label, b, nq, nk, c, exact,
+                 lambda: av.flash_attention_packed_out(q, k, v, wo, bo, scale, heads, exact),
+                 lambda: av.attn_out_plain(q, k, v, wo, bo, scale, heads, exact),
+                 lambda: F.linear(attn(), wo.T, bo.to(torch.bfloat16)), k1,
+                 variant_bound(b, nq, nk, c, 2.0 * b * nq * c * co,
+                               2.0 * b * (nq * c + 2 * nk * c + nq * co) + 2.0 * c * co
+                               + 4.0 * co))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    for label, b, n, c, exact in PROJ_CASES:
+        heads, scale = c // 64, 0.125
+        x = randn(b, n, c).to(torch.bfloat16)
+        wq, wk, wv, wo = ((randn(c, c) * c ** -0.5).to(torch.bfloat16) for _ in range(4))
+        bo = 0.1 * randn(c)
+        args = (x, wq, wk, wv, wo, bo, scale, heads)
+        wqs = (wq.float() * scale).to(torch.bfloat16)
+        bo16 = bo.to(torch.bfloat16)
+
+        def chain():
+            q, k, v = (torch.matmul(x, w) for w in (wqs, wk, wv))
+            return F.linear(sdpa(q, k, v, heads, 1.0)(), wo.T, bo16)
+
+        run_case("attn_proj", label, b, n, n, c, exact,
+                 lambda: av.flash_attention_packed_proj(*args, exact=exact),
+                 lambda: av.attn_proj_plain(*args, exact), chain, None,
+                 variant_bound(b, n, n, c, 8.0 * b * n * c * c,
+                               4.0 * b * n * c + 8.0 * c * c + 4.0 * c))
+        del x
+        torch.cuda.empty_cache()
+
+    for label, b, nq, nk, c, exact in K11_CASES:
+        heads, scale = c // 64, 0.125
+        q, k, v = (randn(b, n, c).to(torch.bfloat16) for n in (nq, nk, nk))
+        run_case("ones_attention", label, b, nq, nk, c, exact,
+                 lambda: av.ones_attention(q, k, v, scale, heads, exact),
+                 lambda: av.attn_ones_plain(q, k, av.augment_v(v, heads), scale, heads,
+                                            exact),
+                 sdpa(q, k, v, heads, scale),
+                 (lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
+                 if nk % 64 == 0 else None,
+                 variant_bound(b, nq, nk, c))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1877,13 +2340,16 @@ def main() -> int:
         "winograd43": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/winograd43.cu",
             replaces="benchmarks/research/winograd43.py:203", cases=[], held_in_phase=22),
+        **{kname: dict(route="cuda", source=VARIANT_SOURCE, replaces=replaces, cases=[],
+                       held_in_phase=27) for kname, replaces in VARIANT_REPLACES.items()},
     }
     name = phase0()
     phase1()
     phase2(gen, table)
     phase3(gen, table)
     phase4(gen)
-    by_path = {"txt2img_512_ddim50_b8": phase5()}
+    main_counts, phase5_s = phase5()
+    by_path = {"txt2img_512_ddim50_b8": main_counts}
     phase6(gen, table)
     models = sd2_models(torch.Generator(device="cuda").manual_seed(2))
     by_path["txt2img_768x1024_ddim50_b4"] = phase7(models)
@@ -1912,17 +2378,20 @@ def main() -> int:
     by_path.update(phase23(gen))
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(phase24(tmp))
+    by_path["serve_sd2_512_ddim50_b8"] = phase25(phase5_s)
+    by_path["serve_glide_cascade_b8"] = phase26()
+    phase27(gen, table)
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
         runs = {p: counts[kname] for p, counts in by_path.items()}
         # launches: on the first path that runs the kernel (the 512^2 main
         # path for K1 and K2, the 768x1024 path for K4, path B for K3; 0 for
-        # K5-K9, which no path runs and `held_in_phase` holds); every path's
+        # K5-K11, which no path runs and `held_in_phase` holds); every path's
         # count is in launches_by_path, and each was checked above
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
-        for key in ("unfused_ms", "direct_conv_rel_l2"):
+        for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

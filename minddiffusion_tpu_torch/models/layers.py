@@ -181,9 +181,7 @@ def conv3x3_dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return winograd.conv3x3_winograd(x.contiguous(), u, bias.float(), mult, add)
     if gn is not None:
         x = _gn_silu(x, gn)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), bias.to(x.dtype),
-                 padding=1)
-    return y.permute(0, 2, 3, 1)
+    return conv3x3_nhwc(x, weight, bias)
 
 
 class Conv3x3(nn.Module):
@@ -192,7 +190,7 @@ class Conv3x3(nn.Module):
     Stride 1 goes through `conv3x3_dispatch`; `wino_cache` is a dict that
     keeps the Winograd transform while a pipeline call runs (models/unet.py
     `hoisted_winograd`), None otherwise. Stride 2 takes `pad` = (left,
-    right, top, bottom) zero padding and runs F.conv2d."""
+    right, top, bottom) zero padding and runs `conv3x3_nhwc`."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  pad: Tuple[int, int, int, int] = (1, 1, 1, 1)):
@@ -210,10 +208,55 @@ class Conv3x3(nn.Module):
             return conv3x3_dispatch(x, self.weight, self.bias, gn, self.wino_cache)
         if gn is not None:
             raise ValueError("the GN prologue is for stride-1 convs")
-        xc = F.pad(x.permute(0, 3, 1, 2), self.pad)
-        y = F.conv2d(xc, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                     stride=self.stride)
-        return y.permute(0, 2, 3, 1)
+        return conv3x3_nhwc(x, self.weight, self.bias, self.stride, self.pad)
+
+
+# Output pixels (B * Ho * Wo) up to which a 3x3 conv on a CUDA tensor runs
+# as `patch_gemm_conv3x3` instead of cuDNN's conv.
+PATCH_GEMM_MAX_ROWS = 4096
+
+
+def conv3x3_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 stride: int = 1, pad: Tuple[int, int, int, int] = (1, 1, 1, 1)
+                 ) -> torch.Tensor:
+    """NHWC 3x3 conv at `stride` after zero padding `pad` = (left, right,
+    top, bottom), in x's dtype: F.conv2d, or on the card `patch_gemm_conv3x3`
+    where the output has at most PATCH_GEMM_MAX_ROWS pixels.
+
+    cuDNN's bf16 conv on the H100 gives an image results that depend on its
+    position in the batch at the UNet's small-spatial sites ((16, 8, 8,
+    1280 or 2560) -> 1280 and (16, 16, 16, 1280) at stride 1, (16, 32, 32,
+    640) at stride 2: a reduction split by output position), which breaks
+    the serving engine's per-request determinism. The patch product takes
+    the same reduction for every pixel; at the larger outputs cuDNN's conv
+    keeps an image's result to itself (both measured on the card at the SD2
+    shapes; chip_smoke.py phase 25 holds the served images bytewise)."""
+    left, right, top, bottom = pad
+    ho = (x.shape[1] + top + bottom - 3) // stride + 1
+    wo = (x.shape[2] + left + right - 3) // stride + 1
+    if x.is_cuda and x.shape[0] * ho * wo <= PATCH_GEMM_MAX_ROWS:
+        return patch_gemm_conv3x3(x, weight, bias, stride, pad)
+    xc, w, b = x.permute(0, 3, 1, 2), weight.to(x.dtype), bias.to(x.dtype)
+    if stride == 1 and pad == (1, 1, 1, 1):
+        y = F.conv2d(xc, w, b, padding=1)
+    else:
+        y = F.conv2d(F.pad(xc, pad), w, b, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def patch_gemm_conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       stride: int, pad: Tuple[int, int, int, int]) -> torch.Tensor:
+    """`conv3x3_nhwc` as the gathered patches (B, Ho, Wo, 9 C_in) times the
+    (9 C_in, C_out) weight in one matrix product."""
+    left, right, top, bottom = pad
+    xp = F.pad(x, (0, 0, left, right, top, bottom))
+    ho = (xp.shape[1] - 3) // stride + 1
+    wo = (xp.shape[2] - 3) // stride + 1
+    cols = torch.cat([xp[:, di:di + stride * (ho - 1) + 1:stride,
+                         dj:dj + stride * (wo - 1) + 1:stride]
+                      for di in range(3) for dj in range(3)], dim=-1)
+    w = weight.to(x.dtype).permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
+    return F.linear(cols, w, bias.to(x.dtype))
 
 
 class Conv1x1(nn.Module):

@@ -43,7 +43,9 @@ _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
     """HWIO (3, 3, C_in, C_out) -> U (16, C_in, C_out) = G k G^T, fp32."""
-    g = torch.tensor(_G, dtype=torch.float32, device=kernel.device)
+    # copied without a stream synchronisation (a pageable host copy with
+    # non_blocking is staged before the call returns)
+    g = torch.tensor(_G, dtype=torch.float32).to(kernel.device, non_blocking=True)
     k = kernel.float()
     u = torch.einsum("ar,rsco->asco", g, k)
     u = torch.einsum("bs,asco->abco", g, u)

@@ -20,7 +20,14 @@ SRGAN (port of minddiffusion_tpu/pipelines/glide_cascade.py).
 Every random draw comes from `generator` unless given explicitly:
 `uncond_tokens` (B, ctx), `noise` (base x_T), `step_noise` (one base-shaped
 tensor per base step), `uncond_rows` (per_step mode: one (ctx,) row per
-step), `sr_noise` (the SR x_T before the upsample_temp scale).
+step), `sr_noise` (the SR x_T before the upsample_temp scale). `row_seeds`
+(B,) ints (per_generation mode) fixes them all per row instead: row b's
+uncond tokens (tag 1), base x_T (2), ancestral noise of every step (3) and
+super-res x_T (4) come from a generator of their own on the models' device,
+seeded with seed_b * 8 + tag (`row_seed_draws`), so row b's images depend on
+seed_b alone, whatever the other rows hold (the serving engine's
+per-request determinism). The draws are not the JAX package's bits (the
+RNGs differ); the tags are its `fold_in` tags.
 """
 from __future__ import annotations
 
@@ -162,6 +169,39 @@ class GlideModels:
             raise KeyError(f"unused checkpoint keys: {unused[:5]}")
 
 
+ROW_SEED_TAGS = 8   # a row's generators are seeded seed * 8 + tag, tags 1-4
+
+
+def row_seed_draws(models: GlideModels, row_seeds, base_size: int = 64,
+                   sr_size: int = 256) -> Dict[str, torch.Tensor]:
+    """The explicit draws `row_seeds` stands for: {"uncond_tokens" (B, ctx)
+    in [1, n_vocab - 1), "noise" (B, base, base, 3), "step_noise" (steps, B,
+    base, base, 3), "sr_noise" (B, sr, sr, 3)}, each row from its own
+    generators (module docstring). Seeds are in [0, 2**31)."""
+    seeds = [int(s) for s in np.asarray(row_seeds).reshape(-1)]
+    if any(not 0 <= s < 2**31 for s in seeds):
+        raise ValueError(f"row_seeds must be in [0, 2**31), got {seeds}")
+    dev = models.device
+    xf = models.base.xf_config
+    steps = models.base_schedule.num_timesteps
+
+    def gen(seed: int, tag: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed * ROW_SEED_TAGS + tag)
+
+    def normal(tag: int, shape: tuple) -> torch.Tensor:
+        return torch.stack([torch.randn(shape, generator=gen(s, tag), device=dev)
+                            for s in seeds])
+
+    return {
+        "uncond_tokens": torch.stack([
+            torch.randint(1, xf.n_vocab - 1, (xf.text_ctx,), generator=gen(s, 1), device=dev)
+            for s in seeds]),
+        "noise": normal(2, (base_size, base_size, 3)),
+        "step_noise": normal(3, (steps, base_size, base_size, 3)).transpose(0, 1),
+        "sr_noise": normal(4, (sr_size, sr_size, 3)),
+    }
+
+
 def _explicit(name: str, value, shape: tuple, device, dtype=torch.float32) -> torch.Tensor:
     value = torch.as_tensor(value)
     if tuple(value.shape) != tuple(shape):
@@ -179,8 +219,8 @@ class GlideCascadePipeline:
                        uncond_mode: str = "per_generation") -> Callable:
         """fn(models, tokens, mask, generator, *, uncond_tokens=None,
         noise=None, step_noise=None, uncond_rows=None, sr_noise=None,
-        timings=None) -> {"base": (B, base, base, 3), "super_res": (B, sr,
-        sr, 3)[, "srgan": (B, 4 sr, 4 sr, 3)]} uint8.
+        timings=None, row_seeds=None) -> {"base": (B, base, base, 3),
+        "super_res": (B, sr, sr, 3)[, "srgan": (B, 4 sr, 4 sr, 3)]} uint8.
 
         tokens / mask (B, text_ctx) ints. `timings`, a dict, receives the
         seconds of each stage (the device synchronised at each boundary).
@@ -260,8 +300,23 @@ class GlideCascadePipeline:
         @torch.inference_mode()
         def fn(models: GlideModels, tokens, mask, generator: Optional[torch.Generator],
                uncond_tokens=None, noise=None, step_noise=None, uncond_rows=None,
-               sr_noise=None, timings: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+               sr_noise=None, timings: Optional[dict] = None,
+               row_seeds=None) -> Dict[str, torch.Tensor]:
             dev = models.device
+            if row_seeds is not None:
+                if uncond_mode != "per_generation":
+                    raise ValueError("row_seeds requires uncond_mode='per_generation' (the "
+                                     "per_step mode draws batch-level uncond tokens)")
+                given = [k for k, v in dict(uncond_tokens=uncond_tokens, noise=noise,
+                                            step_noise=step_noise, sr_noise=sr_noise).items()
+                         if v is not None]
+                if given:
+                    raise ValueError(f"row_seeds fixes every draw; {given} given as well")
+                if len(row_seeds) != b:
+                    raise ValueError(f"row_seeds must hold {b} seeds, got {len(row_seeds)}")
+                draws = row_seed_draws(models, row_seeds, base_size, sr_size)
+                uncond_tokens, noise, step_noise, sr_noise = (
+                    draws[k] for k in ("uncond_tokens", "noise", "step_noise", "sr_noise"))
             tokens = _explicit("tokens", tokens, (b, ctx), dev, torch.int64)
             mask = _explicit("mask", mask, (b, ctx), dev, torch.int64)
             clock = [time.time()]

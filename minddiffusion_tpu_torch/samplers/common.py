@@ -23,7 +23,15 @@ def broadcast_t(t: int, device) -> torch.Tensor:
 def broadcast_time(t: float, device) -> torch.Tensor:
     """A continuous model time (the DPM solvers' nodes) as a batch-1 fp32
     (1,) tensor; `t` is taken at fp32, as the solvers' tables hold it."""
-    return torch.tensor([t], dtype=torch.float32, device=device)
+    return torch.full((1,), float(t), dtype=torch.float32, device=device)
+
+
+def device_scalar(value: float, device) -> torch.Tensor:
+    """`value` at fp32 as a 0-d tensor on `device`, made by a fill there:
+    `torch.tensor(value, device="cuda")` copies from pageable host memory,
+    which synchronises the stream and would stall a caller that keeps work
+    in flight (the serving engine)."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def masked_blend_fn(mask: Optional[torch.Tensor], x0: Optional[torch.Tensor],

@@ -44,9 +44,9 @@ def sample(eps_fn: common.EpsFn, x_T: torch.Tensor, schedule: DiffusionSchedule,
     dev = x.device
     for i in range(start, num_steps):
         t = int(tables["t"][i])
-        a_t = torch.tensor(tables["alpha"][i], device=dev)
-        a_prev = torch.tensor(tables["alpha_prev"][i], device=dev)
-        sigma_t = torch.tensor(tables["sigma"][i], device=dev)
+        a_t = common.device_scalar(tables["alpha"][i], dev)
+        a_prev = common.device_scalar(tables["alpha_prev"][i], dev)
+        sigma_t = common.device_scalar(tables["sigma"][i], dev)
         x = blend(x, t)
         eps = eps_fn(x, common.broadcast_t(t, dev)).float()
         pred_x0 = (x - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)

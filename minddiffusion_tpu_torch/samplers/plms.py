@@ -37,8 +37,8 @@ def sample(eps_fn: common.EpsFn, x_T: torch.Tensor, schedule: DiffusionSchedule,
     for i in range(n):
         t = int(tables["t"][i])
         t_next = int(tables["t"][min(i + 1, n - 1)])
-        a_t = torch.tensor(tables["alpha"][i], device=dev)
-        a_prev = torch.tensor(tables["alpha_prev"][i], device=dev)
+        a_t = common.device_scalar(tables["alpha"][i], dev)
+        a_prev = common.device_scalar(tables["alpha_prev"][i], dev)
         x = blend(x, t)
         e_t = eps_fn(x, common.broadcast_t(t, dev)).float()
         if i == 0:

@@ -21,7 +21,13 @@ class UniformSampler:
         self.num_timesteps = num_timesteps
 
     def sample(self, generator: Optional[torch.Generator], batch: int,
-               device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(t, w) on `device`, by default the generator's: a CUDA generator
+        draws on the card. Without a generator the device must be given."""
+        if device is None:
+            if generator is None:
+                raise ValueError("UniformSampler.sample needs a generator or a device")
+            device = generator.device
         t = torch.randint(0, self.num_timesteps, (batch,), generator=generator,
                           device=device)
         return t, torch.ones((batch,), dtype=torch.float32, device=device)

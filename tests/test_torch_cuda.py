@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from minddiffusion_tpu_torch.models.layers import conv3x3_dispatch
-from minddiffusion_tpu_torch.ops import (attention, conv3x3, flash_attention, fused_ff,
-                                         glide_tail, gn_stats, winograd, winograd43)
+from minddiffusion_tpu_torch.ops import (attention, attn_variants, conv3x3, flash_attention,
+                                         fused_ff, glide_tail, gn_stats, winograd, winograd43)
 
 
 @pytest.fixture
@@ -471,3 +471,78 @@ def test_conv_kernels_raise_on_what_they_do_not_take(cuda):
         winograd43.conv3x3_winograd43(torch.zeros(1, 6, 8, 16, device=cuda,
                                                   dtype=torch.bfloat16),
                                       torch.zeros(3, 3, 16, 16, device=cuda))
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("variant", ["ones", "fold", "k11"])
+@pytest.mark.parametrize("b,nq,nk,c", [(2, 1024, 1024, 320), (1, 300, 77, 640),
+                                       (1, 200, 328, 128), (3, 1, 1, 64)])
+def test_ones_fold_kernels_match_plain(cuda, variant, b, nq, nk, c, exact):
+    """K10a / K10b / K11 with ragged Nq and Nk, the ones column's row sum."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    heads = c // 64
+    fn = {"ones": attn_variants.flash_attention_packed_ones,
+          "fold": attn_variants.flash_attention_packed_fold,
+          "k11": attn_variants.ones_attention}[variant]
+    ref = attn_variants.attn_ones_plain(q, k, attn_variants.augment_v(v, heads), 0.125,
+                                        heads, exact)
+    before = fn.launches
+    got = fn(q, k, v, 0.125, heads, exact=exact)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert _rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("b,nq,nk,c,c_out", [(2, 1024, 1024, 320, 320), (1, 300, 77, 640, 320),
+                                             (1, 200, 328, 128, 136), (2, 64, 64, 1280, 1280)])
+def test_out_kernel_matches_plain(cuda, b, nq, nk, c, c_out, exact):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v = (torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    wo = torch.randn(c, c_out, generator=g, device=cuda) * c ** -0.5
+    bo = 0.1 * torch.randn(c_out, generator=g, device=cuda)
+    ref = attn_variants.attn_out_plain(q, k, v, wo, bo, 0.125, c // 64, exact)
+    got = attn_variants.flash_attention_packed_out(q, k, v, wo, bo, 0.125, c // 64, exact)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("b,n,c,block_q", [(2, 1024, 320, 256), (1, 256, 640, 256),
+                                           (2, 77, 128, 256)])
+def test_proj_kernel_matches_plain(cuda, b, n, c, block_q, exact):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
+    wq, wk, wv, wo = (torch.randn(c, c, generator=g, device=cuda) * c ** -0.5
+                      for _ in range(4))
+    bo = 0.1 * torch.randn(c, generator=g, device=cuda)
+    args = (x, wq, wk, wv, wo, bo, 0.125, c // 64)
+    ref = attn_variants.attn_proj_plain(*args, exact)
+    got = attn_variants.flash_attention_packed_proj(*args, block_q=block_q, exact=exact)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_attn_variant_kernels_raise_on_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 64, 320, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attn_variants.flash_attention_packed_ones(q, q, q, 0.125, 5)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64"):
+        attn_variants.ones_attention(qb, qb, qb, 0.125, 4)
+    w = torch.zeros(320, 100, device=cuda)
+    with pytest.raises(ValueError, match="C_out % 8"):
+        attn_variants.flash_attention_packed_out(qb, qb, qb, w, torch.zeros(100, device=cuda),
+                                                 0.125, 5)

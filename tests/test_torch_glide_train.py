@@ -436,3 +436,16 @@ def test_glide_train_cli_refuses_cuda_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         glide_train.main(["--image_caption_path_file", str(tmp_path / "m.txt")])
+
+
+def test_uniform_sampler_draws_on_the_generators_device():
+    """`UniformSampler.sample` takes its device from the generator (a CUDA
+    generator draws on the card), or from an explicit `device`; with
+    neither it raises instead of falling back to the CPU."""
+    sampler = resample.UniformSampler(10)
+    t, w = sampler.sample(torch.Generator().manual_seed(0), 8)
+    assert t.device == w.device == torch.device("cpu")
+    t, w = sampler.sample(None, 8, device="meta")
+    assert t.device.type == w.device.type == "meta" and t.shape == (8,)
+    with pytest.raises(ValueError, match="generator or a device"):
+        sampler.sample(None, 8)
