@@ -4,9 +4,10 @@
 
 Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
-  1. build the nine CUDA sources of the fifteen kernels from
+  1. build the ten CUDA sources of the twenty-six kernels from
      minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu, K7's
-     two variants conv3x3.cu, K10a-d and K11 attn_variants.cu), one nvcc
+     two variants conv3x3.cu, K10a-d and K11 attn_variants.cu, K12's ten
+     modes and bf16s's packed-exp instantiation attn_diag.cu), one nvcc
      each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes, beside F.scaled_dot_product_attention on the same tensors;
@@ -96,12 +97,31 @@ Phases (one line each; any failure raises and exits non-zero):
      SD2 UNet's ds1 / ds2 shapes and bench_attention.py's, a ragged Nq, Nk
      77 and Nq + 128, C_out != C, both softmax modes; beside SDPA's flash
      backend or the unfused chain, and K1 at the same shape. No path of
-     either package launches them.
+     either package launches them;
+ 28. K12, the ten ds1 ablation modes of bench_attn_ds1.py and bf16s with
+     the packed bf16 exp, vs their plain versions at its shape (16, 4096,
+     320, 5 heads): on independent randn q, k, v and on the script's own
+     input x (q = k = v) scaled by 0.75 (every logit below 88) within the
+     bf16 tolerance (row by row for the raw exp outputs); on x itself, whose
+     diagonal logits pass 88 in ~2% of rows, with the plain version's
+     non-finite positions (an output whose finiteness does not move when
+     s moves by 2^-16 must match), beside K1 raw-exp at scale 1 and SDPA's
+     flash backend at scale 1 (full, kt_full, bf16s, bf16s_ex2); then the shootout
+     (`bench/attn_ds1.py`) over every variant;
+ 29. the eval path at full width: CLIPScoreConfig.vit_h14 (ViT-H/14 and
+     the 24-layer text tower, fp32, seeded random weights) scores phase 5's
+     8 images against their tokens (finite, within [-100, 100], identical
+     on a rerun), CLIP-FID between the batch's halves (finite, >= 0), the
+     time per image;
+ 30. export at full width: SD2's random weights through
+     `cli/export_weights` to .safetensors and back through `cli.common.
+     build_sd`; one UNet eval bitwise equal before and after, and
+     `cli/serve.check_ckpt` takes the file.
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
 The library calls are timing yardsticks only; the port never calls them.
-K5-K11 have no path: their JSON rows report launches 0 and `held_in_phase`.
+K5-K12 have no path: their JSON rows report launches 0 and `held_in_phase`.
 Each path runs with the launch counters set to 0 just before it and read
 just after, held against counts derived by hand from the SD2 and SD1
 configs (for training: per step). The line before the last is the kernel table as JSON; the last
@@ -132,17 +152,17 @@ WARMUP, RUNS = 2, 7
 KERNELS = ("packed_attention", "winograd", "flash_attention", "winograd_gathered",
            "glide_tail", "channel_sums", "fused_ff", "conv3x3_v1", "conv3x3_gemm",
            "winograd43", "attn_ones", "attn_fold", "attn_proj", "attn_out",
-           "ones_attention")
+           "ones_attention", "diag_qk", "diag_exp", "diag_nosm", "diag_fp32pv", "diag_full",
+           "diag_kt_qk", "diag_kt_full", "diag_qk_slice", "diag_qkexp_slice", "diag_bf16s",
+           "diag_bf16s_ex2")
 # csrc/<name>.cu; K2 and K3 share one, K7's two variants another, K10a-d and
-# K11 attn_variants.cu
+# K11 attn_variants.cu, K12's modes attn_diag.cu
 SOURCES = ("packed_attention", "winograd", "flash_attention", "glide_tail", "gn_stats",
-           "fused_ff", "conv3x3", "winograd43", "attn_variants")
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3
-PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
-# fp32 exp on the MUFU units: 16 per clock per SM, 132 SMs, at the card's
-# max SM clock (phase 0 reads it from nvidia-smi)
-MUFU_PER_CLOCK = 16 * 132
-CARD = {"exp_per_s": None}
+           "fused_ff", "conv3x3", "winograd43", "attn_variants", "attn_diag")
+# The bounds take the H100 peaks of bench/attn_ds1.py (PEAK_BF16, PEAK_BYTES,
+# MUFU_PER_CLOCK); the exp rate at the card's max SM clock, which phase 0
+# reads from nvidia-smi
+CARD = {"exp_per_s": None, "smi": None}
 
 
 def log(msg: str) -> None:
@@ -175,20 +195,24 @@ def bound(flops: float, nbytes: float) -> "tuple[float, str]":
     """(least ms the card could take, what bounds it): the larger of the
     bf16 tensor-core time of the products and the HBM time of reading each
     input once and writing each output once."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    from minddiffusion_tpu_torch.bench import attn_ds1
+
+    ms, by, _ = attn_ds1.work_bound(flops, 0.0, 0.0, nbytes, CARD["exp_per_s"])
+    return ms, by
 
 
-def attention_bound(b: int, heads: int, nq: int, nk: int, d: int):
+def attention_bound(b: int, heads: int, nq: int, nk: int, d: int,
+                    proj_flops: float = 0.0, nbytes: "float | None" = None):
     """(ms, "operations" or "bytes", the term that bounds: "mma", "exp" or
-    "bytes"): the larger of the bf16 tensor-core time of QK^T and PV, the
-    MUFU time of one fp32 exp per score (B*H*Nq*Nk), and the HBM time of
-    reading q, k, v and writing out in bf16."""
-    ms, by = bound(4.0 * b * heads * nq * nk * d, 2.0 * b * heads * d * (2 * nq + 2 * nk))
-    exp_ms = b * heads * nq * nk / CARD["exp_per_s"] * 1e3
-    if exp_ms > ms:
-        return exp_ms, "operations", "exp"
-    return ms, by, "mma" if by == "operations" else "bytes"
+    "bytes"): `attn_ds1.work_bound` of attention (`attn_ds1.attention_work`:
+    QK^T and PV, one fp32 exp per score, q, k, v read and out written in
+    bf16), with `proj_flops` more bf16 flops and `nbytes` in place of its
+    bytes where given."""
+    from minddiffusion_tpu_torch.bench import attn_ds1
+
+    flops, tf32, exps, nb = attn_ds1.attention_work(b, heads, nq, nk, d)
+    return attn_ds1.work_bound(flops + proj_flops, tf32, exps, nb if nbytes is None else nbytes,
+                               CARD["exp_per_s"])
 
 
 def sdpa_ms(q, k, v, scale: float) -> "tuple[float, str]":
@@ -231,7 +255,10 @@ def phase0() -> str:
         triton_version = "not installed"
     max_sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader,nounits"]).splitlines()[0])
-    CARD["exp_per_s"] = MUFU_PER_CLOCK * max_sm_mhz * 1e6
+    from minddiffusion_tpu_torch.bench import attn_ds1
+
+    CARD["exp_per_s"] = attn_ds1.MUFU_PER_CLOCK * max_sm_mhz * 1e6
+    CARD["smi"] = smi
     log(f"[phase 0] device={name} torch={torch.__version__} "
         f"cuda={torch.version.cuda} nvcc='{nvcc_line}' triton={triton_version} "
         f"max_sm_clock_mhz={max_sm_mhz:.0f} exp_per_s={CARD['exp_per_s']:.4g}")
@@ -329,7 +356,8 @@ MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plai
              "conv3x3_gemm": "unet_32x32_640", "winograd43": "vae_512x512_128",
              "attn_ones": "ds1_16x4096x320", "attn_fold": "ds1_16x4096x320",
              "attn_proj": "ds1_16x4096x320", "attn_out": "ds1_16x4096x320",
-             "ones_attention": "ds1_16x4096x320"}
+             "ones_attention": "ds1_16x4096x320",
+             **{name: "ds1_16x4096x320" for name in KERNELS if name.startswith("diag_")}}
 
 
 def phase3(gen: torch.Generator, table: dict) -> None:
@@ -375,8 +403,8 @@ def wrappers() -> dict:
     """The launch-counting wrapper of each kernel."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa, glide_tail, winograd as wg
 
-    from minddiffusion_tpu_torch.ops import attn_variants as av, conv3x3, fused_ff, gn_stats
-    from minddiffusion_tpu_torch.ops import winograd43
+    from minddiffusion_tpu_torch.ops import attn_diag as ad, attn_variants as av, conv3x3
+    from minddiffusion_tpu_torch.ops import fused_ff, gn_stats, winograd43
 
     return {"packed_attention": fa.flash_attention_packed,
             "winograd": wg.conv3x3_winograd, "flash_attention": fa.flash_attention,
@@ -388,7 +416,8 @@ def wrappers() -> dict:
             "attn_ones": av.flash_attention_packed_ones,
             "attn_fold": av.flash_attention_packed_fold,
             "attn_proj": av.flash_attention_packed_proj,
-            "attn_out": av.flash_attention_packed_out, "ones_attention": av.ones_attention}
+            "attn_out": av.flash_attention_packed_out, "ones_attention": av.ones_attention,
+            **{name: getattr(ad, fn) for name, (fn, _) in DIAG_ROWS.items()}}
 
 
 def reset_counts() -> None:
@@ -452,9 +481,10 @@ def phase4(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
-def phase5() -> "tuple[dict, float]":
+def phase5() -> "tuple[dict, float, torch.Tensor]":
     """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16.
-    Returns the launch counts and the seconds of the second run."""
+    Returns the launch counts, the seconds of the second run and the images
+    (on the host)."""
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
     batch, size, steps = 8, 512, 50
@@ -485,7 +515,7 @@ def phase5() -> "tuple[dict, float]":
         f"launches={counts} expected={expected} first_run_s={first_s:.3f} "
         f"s_per_batch={batch_s:.3f} img_per_s={batch / batch_s:.4f} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    return counts, batch_s
+    return counts, batch_s, img1.cpu()
 
 
 FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
@@ -2181,13 +2211,7 @@ def variant_bound(b: int, nq: int, nk: int, c: int, proj_flops: float = 0.0,
     """attention_bound at D 64 with the projections' bf16 flops added to the
     tensor-core term; `nbytes` replaces the HBM term's bytes (q, k, v read
     and the output written once, in bf16) where the inputs differ."""
-    heads = c // 64
-    ms, by = bound(4.0 * b * nq * nk * c + proj_flops,
-                   2.0 * b * c * (2 * nq + 2 * nk) if nbytes is None else nbytes)
-    exp_ms = b * heads * nq * nk / CARD["exp_per_s"] * 1e3
-    if exp_ms > ms:
-        return exp_ms, "operations", "exp"
-    return ms, by, "mma" if by == "operations" else "bytes"
+    return attention_bound(b, c // 64, nq, nk, 64, proj_flops, nbytes)
 
 
 def phase27(gen: torch.Generator, table: dict) -> None:
@@ -2301,6 +2325,314 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         torch.cuda.empty_cache()
 
 
+
+# ---- K12 (phase 28) ---------------------------------------------------------
+
+DIAG_SOURCE = "minddiffusion_tpu_torch/ops/csrc/attn_diag.cu"
+DIAG_ROWS = {  # row: (its wrapper in ops/attn_diag.py, the pallas_call of its TPU kernel)
+    **{f"diag_{m}": ("diag", "benchmarks/bench_attn_ds1.py:137")
+       for m in ("qk", "exp", "nosm", "fp32pv", "full")},
+    "diag_kt_qk": ("diag_kt", "benchmarks/bench_attn_ds1.py:183"),
+    "diag_kt_full": ("diag_kt", "benchmarks/bench_attn_ds1.py:183"),
+    "diag_qk_slice": ("diag_slice", "benchmarks/bench_attn_ds1.py:218"),
+    "diag_qkexp_slice": ("diag_slice", "benchmarks/bench_attn_ds1.py:218"),
+    "diag_bf16s": ("diag_bf16s", "benchmarks/bench_attn_ds1.py:266"),
+    "diag_bf16s_ex2": ("diag_bf16s", "benchmarks/bench_attn_ds1.py:266"),
+}
+# SDPA at scale 1 computes softmax(q k^T) v, the function of these modes
+# where it is finite (it subtracts the row max, so it never overflows)
+DIAG_LIBRARY = ("diag_full", "diag_kt_full", "diag_bf16s", "diag_bf16s_ex2")
+# The kernels and the plain versions sum s's 64 products in other orders
+# (mma.sync vs cuBLAS) and take exp with other roundings, so s and exp(s)
+# differ in their last bits. Two kinds of output turn on those bits: one
+# whose fp32 overflow flips (every mode with an exp, on the script's input),
+# and, in bf16s, one whose row leans on a score at a bf16 rounding midpoint
+# (bf16(s) jumps by a bf16 step there, exp(bf16(s)) by 28% at s ~ 40). The
+# plain version is run again with s moved by a relative -2^-16 and +2^-16
+# (~100 fp32 ulps, above the 64 u ~ 2^-18 worst case of a 64-term fp32
+# sum). An output may be non-finite where the plain one is finite (or the
+# other way) only where one of those moves flips it; every output finite in
+# both is held within REL_TOL (of its scale, above) plus its allowance: how
+# far the moves took the plain output, and for bf16s `bf16s_rounding_bound`.
+DIAG_BOUNDARY_EPS = 2.0 ** -16
+
+
+def bf16s_rounding_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int, exp_table: "torch.Tensor | None" = None) -> torch.Tensor:
+    """An upper bound, per output of bf16s, on how far it moves when the
+    scores within DIAG_BOUNDARY_EPS (relative) of a bf16 rounding midpoint
+    round to the other side, in any combination: with dp_j the change of
+    p_j = exp(bf16(s_j)) at such a key (0 elsewhere), the row's o = P V / l
+    becomes o + sum_j dp_j (v_j - o) / (l + sum_j dp_j), so it moves by at
+    most sum_j |dp_j| |v_j - o| / (l - sum_j |dp_j|); and by at most
+    max_j |v_j| + |o|, since o stays a convex combination of the v_j. The
+    exp is the one of `exp_table` (`attn_diag.exp_rounded`)."""
+    from minddiffusion_tpu_torch.ops.attn_diag import exp_rounded
+
+    b, n, c = q.shape
+    d = c // heads
+    out = torch.empty(b, n, c, device=q.device)
+    for i in range(b):
+        for h in range(heads):
+            sl = slice(h * d, (h + 1) * d)
+            s = torch.matmul(q[i, :, sl].float(), k[i, :, sl].float().T)
+            sb = s.to(torch.bfloat16)
+            bits = sb.view(torch.int16).to(torch.int32)
+            # the other bf16 neighbour of s: one step up or down the bit pattern
+            step = torch.where((s > sb.float()) ^ (bits < 0), 1, -1)
+            other = (bits + step).to(torch.int16).view(torch.bfloat16)
+            p = exp_rounded(sb, torch.bfloat16, exp_table)
+            near = (s - (sb.float() + other.float()) / 2).abs() <= DIAG_BOUNDARY_EPS * s.abs()
+            dp = torch.where(near, (exp_rounded(other, torch.bfloat16, exp_table) - p).abs(), 0.0)
+            vh = v[i, :, sl].float()
+            l = p.sum(-1, keepdim=True)
+            o = torch.matmul(p, vh) / l
+            rows, keys = dp.nonzero(as_tuple=True)       # the few keys near a midpoint
+            moved = dp[rows, keys, None] * (vh[keys] - o[rows]).abs()
+            num = torch.zeros_like(o).index_add_(0, rows, moved)
+            cap = vh.abs().amax(0) + o.abs()
+            out[i, :, sl] = torch.minimum(
+                num / (l - dp.sum(-1, keepdim=True)).clamp_min(0.0), cap)
+    return out
+
+
+DIAG_XS = 0.75          # x * 0.75: the script's input with every logit below 88
+
+
+def max_logit(q: torch.Tensor, k: torch.Tensor, heads: int) -> float:
+    d = q.shape[-1] // heads
+    return max(torch.matmul(q[i, :, h * d:(h + 1) * d].float(),
+                            k[i, :, h * d:(h + 1) * d].float().T).max().item()
+               for i in range(q.shape[0]) for h in range(heads))
+
+
+def hold_diag(name: str, got: torch.Tensor, plain, args: tuple, heads: int,
+              overflow: bool, exp_table: "torch.Tensor | None" = None) -> dict:
+    """`got` against the plain version on `args` (DIAG_BOUNDARY_EPS): where
+    both are finite, within REL_TOL of the output's scale (`hold_scale`)
+    plus its allowance; non-finite where the plain one is, except where the
+    plain one's finiteness moves with s's last bits; unless `overflow`,
+    finite everywhere in both. bf16s's allowance includes
+    `bf16s_rounding_bound` with `exp_table`'s exp."""
+    from minddiffusion_tpu_torch.ops.attn_diag import hold_scale
+
+    ref = plain(*args, heads)
+    fin, gfin = torch.isfinite(ref), torch.isfinite(got)
+    scale = hold_scale(name, ref, heads)
+    allowance = torch.zeros(ref.shape, device=ref.device)
+    if name.startswith("diag_bf16s"):
+        allowance = bf16s_rounding_bound(*args, heads, exp_table=exp_table)
+    flips = torch.zeros_like(fin)
+    for e in (-DIAG_BOUNDARY_EPS, DIAG_BOUNDARY_EPS):
+        moved = plain(*args, heads, score_scale=1.0 + e)
+        mfin = torch.isfinite(moved)
+        flips |= mfin != fin
+        moved = torch.where(mfin & fin, (moved.float() - ref.float()).abs(), 0.0)
+        allowance = torch.maximum(allowance, moved)
+        del moved, mfin
+    if not overflow:
+        assert fin.all() and gfin.all(), (name, int((~fin).sum()), int((~gfin).sum()))
+    mismatch = gfin != fin
+    rec = dict(nonfinite=int((~fin).sum()), flippable=int(flips.sum()),
+               mask_mismatches=int(mismatch.sum()))
+    assert not (mismatch & ~flips).any(), (name, rec)
+    checked = fin & gfin
+    diff = torch.where(checked, (got.float() - ref.float()).abs(), 0.0)
+    limit = REL_TOL * scale + allowance
+    # the error against its scale, after the allowance: <= REL_TOL passes
+    excess = torch.where(checked, (diff - allowance).clamp_min(0.0) / scale, 0.0)
+    excess = torch.nan_to_num(excess, nan=0.0, posinf=math.inf)   # 0 / 0 where diff is 0
+    sensitive = checked & (allowance > 0.5 * REL_TOL * scale)
+    rec.update(
+        sensitive=int(sensitive.sum()),
+        rel_err=excess.max().item(),
+        # the same without the allowance, over every output finite in both,
+        # and over the sensitive ones alone
+        rel_err_raw=torch.nan_to_num(torch.where(checked, diff / scale, 0.0)).max().item(),
+        err_sensitive=(torch.nan_to_num(diff / scale)[sensitive].max().item()
+                       if sensitive.any() else 0.0),
+        outputs_over_limit=int((checked & (diff > limit)).sum()))
+    assert rec["outputs_over_limit"] == 0 and rec["rel_err"] <= REL_TOL, (name, rec)
+    return dict(abs_err=diff.max().item(), **rec)
+
+
+def hold_exp_table(table: torch.Tensor) -> dict:
+    """The packed bf16 exp of bf16s_ex2 at every finite bf16 input against
+    torch.exp rounded to bf16: the largest relative error where the exact
+    value is a normal finite bf16; finite exactly where it is; zero where it
+    is and where it is subnormal (flushed), nowhere else."""
+    x = torch.arange(1 << 16, dtype=torch.int32, device=table.device).to(torch.int16).view(
+        torch.bfloat16)
+    ok = torch.isfinite(x)
+    exact, got = torch.exp(x.float()).to(torch.bfloat16).float(), table.float()
+    normal = ok & torch.isfinite(exact) & (exact >= torch.finfo(torch.bfloat16).tiny)
+    rel = ((got - exact).abs() / exact)[normal].max().item()
+    zero = ok & ((got == 0) != (exact == 0))
+    rec = dict(max_rel_err=rel,
+               finite_mismatches=int((ok & (torch.isfinite(got) != torch.isfinite(exact))).sum()),
+               flushed=int((zero & ~normal).sum()), zero_mismatches=int((zero & normal).sum()))
+    # ex2.approx.ftz.bf16x2's own error plus bf16(f)'s 2^-9 step: a few bf16 ulps
+    assert rel <= 2e-2 and rec["finite_mismatches"] == 0 and rec["zero_mismatches"] == 0, rec
+    return rec
+
+
+def phase28(gen: torch.Generator, table: dict) -> None:
+    """K12's ten modes and bf16s_ex2 against their plain versions at
+    bench_attn_ds1.py's shape, on three inputs: independent randn q, k, v
+    (the timed case), the script's x (q = k = v) scaled by DIAG_XS, and x
+    itself (its rows whose diagonal logit passes 88 overflow in both
+    versions); beside K1 raw-exp and SDPA flash at scale 1. bf16s_ex2's
+    plain version takes the packed exp's values (`exp_bf16x2_table`), which
+    are held against torch.exp first; the kernel is also compared with the
+    exact-exp plain version, its overflow positions counted. Then the
+    shootout over every variant. No path of either package launches K12."""
+    from minddiffusion_tpu_torch.bench import attn_ds1
+    from minddiffusion_tpu_torch.ops import attn_diag as ad, flash_attention as fa
+
+    b, n, c, heads = attn_ds1.B, attn_ds1.N, attn_ds1.C, attn_ds1.H
+    d = c // heads
+    indep = tuple(torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    x = attn_ds1.script_input(b, n, c, "cuda")
+    xs = (x.float() * DIAG_XS).to(torch.bfloat16)
+    xh = x.float().view(b, n, heads, d)
+    diag_logits = (xh * xh).sum(-1)           # q = k: the largest logit of each row
+    limits = dict(indep=max_logit(indep[0], indep[1], heads),
+                  scaled=diag_logits.max().item() * DIAG_XS ** 2,
+                  script=diag_logits.max().item(),
+                  script_rows_over_88=int((diag_logits > 88.7228).sum()))
+    assert limits["indep"] < 88 and limits["scaled"] < 88, limits
+    log(f"[phase 28] inputs: max logit {limits}")
+    k1_ms = cuda_ms(lambda: fa.flash_attention_packed(*indep, heads, 1.0, False))
+    views = [t.view(b, n, heads, d).transpose(1, 2) for t in indep]
+    library_ms, backend = sdpa_ms(*views, 1.0)
+    exp_table = ad.exp_bf16x2_table(torch.device("cuda"))
+    table_rec = hold_exp_table(exp_table)
+    log(f"[phase 28] packed bf16 exp vs torch.exp at all 65536 bf16 inputs: {table_rec}")
+    for name, (fn, plain) in ad.variants().items():
+        ex2 = name == "diag_bf16s_ex2"
+        cases, vs_exact = {}, {}
+        for label, args, overflow in (("ds1_16x4096x320", indep, False),
+                                      ("script_x0.75", (xs, xs, xs), False),
+                                      ("script_x", (x, x, x), True)):
+            got = fn(*args, heads)
+            torch.cuda.synchronize()
+            cases[label] = hold_diag(name, got, plain, args, heads, overflow,
+                                     exp_table if ex2 else None)
+            if ex2:   # the same kernel against the function with torch.exp
+                ref = ad.diag_bf16s_plain(*args, heads)
+                fin, gfin = torch.isfinite(ref), torch.isfinite(got)
+                both = fin & gfin
+                vs_exact[label] = dict(
+                    mask_mismatches=int((fin != gfin).sum()),
+                    rel_err=((got.float() - ref.float())[both].abs().max()
+                             / ref.float()[both].abs().max()).item())
+                del ref, fin, gfin, both
+            del got
+        ms = cuda_ms(lambda: fn(*indep, heads))
+        plain_ms = cuda_ms(lambda: plain(*indep, heads), runs=3)
+        bound_ms, bound_by, term = attn_ds1.bound(name, b, n, c, heads, CARD["exp_per_s"])
+        lib = library_ms if name in DIAG_LIBRARY else None
+        mask = cases["script_x"]
+        log(f"[phase 28] {name} B={b} N={n} C={c} heads={heads} "
+            + " ".join(f"{lab}:rel_err={r['rel_err']:.3e},raw={r['rel_err_raw']:.3e},"
+                       f"sensitive={r['sensitive']},err_sensitive={r['err_sensitive']:.3e}"
+                       for lab, r in cases.items())
+            + f" script_x:nonfinite={mask['nonfinite']},flippable={mask['flippable']},"
+            f"mask_mismatches={mask['mask_mismatches']} "
+            + (f"vs_exact_exp={vs_exact} " if ex2 else "") + f"kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} k1_fast_ms={k1_ms:.4f} "
+            f"library_ms={'none' if lib is None else f'{lib:.4f} (sdpa {backend})'} "
+            f"bound_ms={bound_ms:.4f} ({term})")
+        for label, r in cases.items():
+            table[name]["cases"].append({
+                "case": label, "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
+                "k1_ms": k1_ms, "holds": {lab: {k: h[k] for k in (
+                    "rel_err", "rel_err_raw", "sensitive", "err_sensitive", "nonfinite",
+                    "flippable", "mask_mismatches")} for lab, h in cases.items()},
+                **({"vs_exact_exp": vs_exact, "exp_table": table_rec} if ex2 else {}), **r})
+    del indep, x, xs, xh, diag_logits
+    torch.cuda.empty_cache()
+    results = attn_ds1.main([])
+    assert [r["name"] for r in results] == list(attn_ds1.VARIANTS)
+    assert all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in results)
+
+
+# ---- eval and export (phases 29, 30) ----------------------------------------
+
+def phase29(images: torch.Tensor) -> None:
+    """The eval path at full width: CLIPScoreConfig.vit_h14 (fp32, seeded
+    random weights; no CLIP checkpoint is in the repository) scores phase
+    5's images against phase 5's tokens, twice; CLIP-FID between the two
+    halves of the batch; the time per image."""
+    from minddiffusion_tpu_torch.eval import (CLIPScoreConfig, clip_fid, clip_score_fn,
+                                              image_features_fn)
+
+    cfg = CLIPScoreConfig.vit_h14()
+    scorer, score = clip_score_fn(cfg, "cuda", torch.Generator(device="cuda").manual_seed(5))
+    b = images.shape[0]
+    tokens = torch.ones(b, 77, dtype=torch.long)      # the prompt tokens phase 5 ran with
+
+    def run():
+        out = score(scorer, images, tokens)
+        torch.cuda.synchronize()
+        return out
+
+    first, second = run(), run()
+    assert first.shape == (b,) and torch.isfinite(first).all(), first
+    assert first.abs().max().item() <= 100.0 + 1e-3, first
+    assert torch.equal(first, second), (first, second)
+    feats = image_features_fn(cfg, "cuda")(scorer, images)
+    fid = clip_fid(feats[: b // 2], feats[b // 2:])
+    assert math.isfinite(fid) and fid >= 0.0, fid
+    ms = host_ms(run)
+    log(f"[phase 29] clip_score vit_h14 fp32 B={b} 512x512->224 scores="
+        f"{[round(v, 4) for v in first.tolist()]} rerun_equal=True clip_fid_halves={fid:.6f} "
+        f"ms_per_batch={ms:.3f} ms_per_image={ms / b:.3f} card='{CARD['smi']}'")
+    del scorer
+    torch.cuda.empty_cache()
+
+
+def phase30(tmp: str) -> None:
+    """Export at full width: SD2 random weights (bf16, written as BF16
+    .safetensors) -> `cli/export_weights` (fp32 .safetensors) ->
+    `cli.common.build_sd`; the state dicts and one UNet eval bitwise equal,
+    and the serve CLI's `check_ckpt` takes the file."""
+    from minddiffusion_tpu_torch.cli import common, export_weights, serve
+    from minddiffusion_tpu_torch.io import sd_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    models = sd2_models(gen)
+    src, out = os.path.join(tmp, "sd2_bf16.safetensors"), os.path.join(tmp, "sd2.safetensors")
+    t0 = time.time()
+    sd_weights.save_safetensors(models.state_dict(), src)
+    t1 = time.time()
+    export_weights.main(["--family", "sd2", "--ckpt", src, "--out", out])
+    t2 = time.time()
+    serve.check_ckpt(out)
+    back = common.build_sd("sd2", "bf16", torch.device("cuda"), ckpt_path=out)
+    t3 = time.time()
+    before, after = models.state_dict(), back.state_dict()
+    assert before.keys() == after.keys()
+    differ = [k for k in before if not torch.equal(before[k], after[k])]
+    assert not differ, differ[:5]
+    x = torch.randn(16, 64, 64, 4, generator=gen, device="cuda")
+    t = torch.linspace(1, 981, 16, device="cuda").round().long()
+    ctx = torch.randn(16, 77, 1024, generator=gen, device="cuda")
+    with torch.inference_mode():
+        eps_a = models.unet(x, t, ctx)
+        eps_b = back.unet(x, t, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(eps_a, eps_b), (eps_a - eps_b).abs().max().item()
+    log(f"[phase 30] export sd2: {len(before)} tensors, bf16 file "
+        f"{os.path.getsize(src) / 1e9:.3f} GB written in {t1 - t0:.1f} s, export to fp32 "
+        f"{os.path.getsize(out) / 1e9:.3f} GB in {t2 - t1:.1f} s, build_sd read back in "
+        f"{t3 - t2:.1f} s; state dicts and one UNet eval (B 16, 64x64) bitwise equal; "
+        f"check_ckpt took it")
+    del models, back
+    torch.cuda.empty_cache()
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2342,13 +2674,15 @@ def main() -> int:
             replaces="benchmarks/research/winograd43.py:203", cases=[], held_in_phase=22),
         **{kname: dict(route="cuda", source=VARIANT_SOURCE, replaces=replaces, cases=[],
                        held_in_phase=27) for kname, replaces in VARIANT_REPLACES.items()},
+        **{kname: dict(route="cuda", source=DIAG_SOURCE, replaces=replaces, cases=[],
+                       held_in_phase=28) for kname, (_, replaces) in DIAG_ROWS.items()},
     }
     name = phase0()
     phase1()
     phase2(gen, table)
     phase3(gen, table)
     phase4(gen)
-    main_counts, phase5_s = phase5()
+    main_counts, phase5_s, phase5_images = phase5()
     by_path = {"txt2img_512_ddim50_b8": main_counts}
     phase6(gen, table)
     models = sd2_models(torch.Generator(device="cuda").manual_seed(2))
@@ -2381,17 +2715,21 @@ def main() -> int:
     by_path["serve_sd2_512_ddim50_b8"] = phase25(phase5_s)
     by_path["serve_glide_cascade_b8"] = phase26()
     phase27(gen, table)
+    phase28(gen, table)
+    phase29(phase5_images)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase30(tmp)
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
         runs = {p: counts[kname] for p, counts in by_path.items()}
         # launches: on the first path that runs the kernel (the 512^2 main
         # path for K1 and K2, the 768x1024 path for K4, path B for K3; 0 for
-        # K5-K11, which no path runs and `held_in_phase` holds); every path's
+        # K5-K12, which no path runs and `held_in_phase` holds); every path's
         # count is in launches_by_path, and each was checked above
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
-        for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms"):
+        for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mask_path", type=str, required=True,
                    help="white (last channel > 127.5) = region to repaint")
     p.add_argument("--ckpt_path", type=str, default=None,
-                   help="LDM-named torch checkpoint (.ckpt/.pt)")
+                   help="LDM-named checkpoint: .safetensors, torch .ckpt/.pt or MindSpore .ckpt")
     p.add_argument("--outdir", type=str, default="output/inpaint-samples")
     p.add_argument("--H", type=int, default=512)
     p.add_argument("--W", type=int, default=512)

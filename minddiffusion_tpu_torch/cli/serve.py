@@ -12,8 +12,9 @@ is one batch time. (prompt, seed) gives the same image whatever it is
 batched with (SD: explicit x_T noise; GLIDE: row_seeds).
 
 --ckpt reads what the txt2img and glide_txt2img CLIs read: an LDM-named
-torch checkpoint (sd2, wukong) or a torch state dict in the port's GLIDE
-names; without it the weights are seeded random. The SD families tokenize
+checkpoint (sd2, wukong: .safetensors, torch or MindSpore .ckpt) or a torch
+state dict in the port's GLIDE names; without it the weights are seeded
+random. Orbax directories are refused. The SD families tokenize
 with the CLIP BPE / zh wordpiece vocab (`bpe_simple_vocab_16e6.txt.gz`,
 `vocab_zh.txt` in $MINDDIFFUSION_TPU_ASSETS or assets/); GLIDE without
 --tokenizer_model serves placeholder token ids, as the JAX CLI does.
@@ -22,24 +23,20 @@ from __future__ import annotations
 
 import argparse
 import os
-import zipfile
 
 import numpy as np
 import torch
 
 from minddiffusion_tpu_torch.cli import common
 
-_FORMAT_QUEUED = ("the .safetensors and MindSpore .ckpt readers are queued in ROADMAP.md "
-                  "Queue 1, 'io, export and eval'; orbax directories stay with the JAX "
-                  "package")
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--family", default="sd2", choices=["sd2", "wukong", "glide"])
-    p.add_argument("--ckpt", default=None, help="LDM torch .ckpt (sd2, wukong) or the "
-                   "port's GLIDE state dict; seeded random weights if omitted")
+    p.add_argument("--ckpt", default=None, help="LDM .safetensors / torch / MindSpore "
+                   ".ckpt (sd2, wukong) or the port's GLIDE state dict; seeded random "
+                   "weights if omitted")
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--steps", type=int, default=50,
@@ -65,18 +62,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ckpt(path: str) -> None:
-    """Refuse what the port cannot read yet: .safetensors, orbax
-    directories, and .ckpt files that are not torch checkpoints (a torch
-    checkpoint is a zip archive or a pickle; a MindSpore one is neither)."""
+    """Refuse an orbax directory, which the port does not read."""
     if os.path.isdir(path):
-        raise SystemExit(f"--ckpt {path}: an orbax directory; {_FORMAT_QUEUED}")
-    if path.endswith(".safetensors"):
-        raise SystemExit(f"--ckpt {path}: .safetensors is not read yet; {_FORMAT_QUEUED}")
-    with open(path, "rb") as f:
-        is_pickle = f.read(1) == b"\x80"
-    if not (is_pickle or zipfile.is_zipfile(path)):
-        raise SystemExit(f"--ckpt {path}: not a torch checkpoint (MindSpore .ckpt?); "
-                         f"{_FORMAT_QUEUED}")
+        raise SystemExit(f"--ckpt {path}: {common.ORBAX_REFUSED}")
 
 
 def _device(args) -> torch.device:

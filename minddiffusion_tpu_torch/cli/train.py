@@ -41,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_path", type=str, default="output/train")
     p.add_argument("--family", choices=["sd2", "wukong"], default="wukong")
     p.add_argument("--pretrained_ckpt", type=str, default=None,
-                   help="LDM-named torch checkpoint (.ckpt/.pt)")
+                   help="LDM-named checkpoint: .safetensors, torch .ckpt/.pt or MindSpore .ckpt")
     p.add_argument("--train_mode", choices=["finetune", "dreambooth", "lora"],
                    default="finetune")
     p.add_argument("--train_batch_size", type=int, default=3)

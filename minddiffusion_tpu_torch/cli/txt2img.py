@@ -25,7 +25,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--negative_prompt", type=str, default="")
     p.add_argument("--family", choices=["sd2", "wukong"], default="sd2")
     p.add_argument("--ckpt_path", type=str, default=None,
-                   help="LDM-named torch checkpoint (.ckpt/.pt)")
+                   help="LDM-named checkpoint: .safetensors, torch .ckpt/.pt or MindSpore .ckpt")
     p.add_argument("--outdir", type=str, default="output/txt2img-samples")
     p.add_argument("--H", type=int, default=512)
     p.add_argument("--W", type=int, default=512)

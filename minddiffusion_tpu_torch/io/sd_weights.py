@@ -14,10 +14,17 @@ numpy arrays and returns flat LDM names (`model.diffusion_model.*`,
 
 The port's modules carry exactly these names, so
 `SDModels.load_state_dict` loads the result with strict=True.
+
+Also here: the safetensors reader and writer (a copy of the JAX codec,
+with BF16 read and written through torch, so no JAX-side bfloat16 package
+is needed) and
+`export_sd_checkpoint`, the port models' LDM state dict.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import json
+import struct
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -246,3 +253,90 @@ def state_dict_from_jax(params: dict, unet_config) -> Dict[str, np.ndarray]:
             name, layout = entry
             out[PREFIXES[kind] + name] = _to_torch(np.asarray(leaf, np.float32), layout)
     return out
+
+
+# ---------------------------------------------------------------------------
+# safetensors (JAX io/sd_weights.py `load_safetensors` / `save_safetensors`)
+# ---------------------------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {  # numpy dtype -> safetensors name; BF16 goes through torch
+    np.dtype(np.float64): "F64", np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
+    np.dtype(np.int64): "I64", np.dtype(np.int32): "I32", np.dtype(np.int16): "I16",
+    np.dtype(np.int8): "I8", np.dtype(np.uint8): "U8", np.dtype(np.bool_): "BOOL",
+}
+_SAFETENSORS_TO_NUMPY = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Read a .safetensors file (8-byte little-endian header length, a JSON
+    header of {name: {dtype, shape, data_offsets}}, the row-major tensor
+    bytes) into numpy arrays, float tensors as fp32, as the JAX reader
+    returns them. BF16 is decoded through a torch view of its bytes."""
+    import torch
+
+    with open(path, "rb") as f:
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(hlen))
+        data = f.read()
+    out: Dict[str, np.ndarray] = {}
+    for name, spec in header.items():
+        if name == "__metadata__":
+            continue
+        a, b = spec["data_offsets"]
+        if spec["dtype"] == "BF16":
+            t = torch.frombuffer(bytearray(data[a:b]), dtype=torch.bfloat16)
+            out[name] = t.float().numpy().reshape(spec["shape"])
+            continue
+        if spec["dtype"] not in _SAFETENSORS_TO_NUMPY:
+            raise KeyError(f"unsupported safetensors dtype {spec['dtype']!r}")
+        dt = _SAFETENSORS_TO_NUMPY[spec["dtype"]]
+        arr = np.frombuffer(data[a:b], dtype=dt).reshape(spec["shape"])
+        out[name] = arr.astype(np.float32) if np.issubdtype(dt, np.floating) else arr.copy()
+    return out
+
+
+def save_safetensors(state_dict: Dict, path: str,
+                     metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write numpy arrays or torch tensors (bf16 ones as BF16) in the
+    safetensors layout, names sorted, as the JAX writer does."""
+    import torch
+
+    header: Dict = {"__metadata__": metadata} if metadata else {}
+    blobs, offset = [], 0
+    for name in sorted(state_dict):
+        value = state_dict[name]
+        if isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
+            kind, raw = "BF16", value.detach().cpu().contiguous().view(torch.int16).numpy()
+        else:
+            raw = np.ascontiguousarray(value.detach().cpu().numpy()
+                                       if isinstance(value, torch.Tensor) else value)
+            if raw.dtype not in _SAFETENSORS_DTYPES:
+                raise ValueError(f"unsupported dtype {raw.dtype} for {name}")
+            kind = _SAFETENSORS_DTYPES[raw.dtype]
+        header[name] = {"dtype": kind, "shape": list(raw.shape),
+                        "data_offsets": [offset, offset + raw.nbytes]}
+        offset += raw.nbytes
+        blobs.append(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw.tobytes())
+
+
+def export_sd_checkpoint(models) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """`SDModels` -> (the LDM-named fp32 state dict with its LDM prefixes,
+    report). LoRA adapters have no LDM name: they are reported and left out
+    (merge them first with `models.lora.merge_lora_state_dict`), as the JAX
+    `export_sd_checkpoint` reports its unmapped leaves."""
+    from minddiffusion_tpu_torch.models.lora import is_lora_name
+
+    out: Dict[str, np.ndarray] = {}
+    report: List[str] = []
+    for name, value in models.state_dict().items():
+        if is_lora_name(name):
+            report.append(f"not exported: {name}")
+            continue
+        out[name] = value.detach().float().cpu().numpy()
+    return out, report

@@ -6,7 +6,9 @@ mlp.c_fc, mlp.c_proj}, ln_final).
 Presets: SD2 (`sd2_en`) width 1024, 23 layers, 16 heads, tanh GELU;
 Wukong-Huahua (`wukong_zh`) width 768, 12 layers, 12 heads, QuickGELU
 x * sigmoid(1.702 x), over the zh wordpiece vocabulary (ids below 21128
-of the 49408-row embedding). Token ids outside
+of the 49408-row embedding). `use_exact_gelu` takes the erf GELU of the
+OpenCLIP towers that the eval scorer carries (eval/clip_score.py); the
+blocks also serve the ViT image tower (models/clip_vision.py), unmasked. Token ids outside
 the vocabulary are clipped to it (JAX `take(..., mode='clip')`). Returns the
 full final-LayerNorm sequence (B, L, width) in fp32: the UNet's context.
 The activations run in `compute_dtype`, or in the weights' dtype when it is
@@ -33,6 +35,7 @@ class CLIPTextConfig:
     heads: int = 16
     context_length: int = 77
     use_quick_gelu: bool = False
+    use_exact_gelu: bool = False
 
     @classmethod
     def sd2_en(cls, **kw) -> "CLIPTextConfig":
@@ -56,7 +59,7 @@ class CausalSelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = Linear(width, width)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         b, l, w = x.shape
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = (t.reshape(b, l, self.heads, w // self.heads)
@@ -65,9 +68,13 @@ class CausalSelfAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, use_quick_gelu: bool = False):
+    """Pre-LN block; `bias` is the additive attention bias (the causal mask)
+    or None."""
+
+    def __init__(self, width: int, heads: int, use_quick_gelu: bool = False,
+                 use_exact_gelu: bool = False):
         super().__init__()
-        self.use_quick_gelu = use_quick_gelu
+        self.use_quick_gelu, self.use_exact_gelu = use_quick_gelu, use_exact_gelu
         self.ln_1 = LayerNormFp32(width)
         self.attn = CausalSelfAttention(width, heads)
         self.ln_2 = LayerNormFp32(width)
@@ -75,10 +82,13 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp.c_fc = Linear(width, 4 * width)
         self.mlp.c_proj = Linear(4 * width, width)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), bias)
         h = self.mlp.c_fc(self.ln_2(x))
-        h = quick_gelu(h) if self.use_quick_gelu else F.gelu(h, approximate="tanh")
+        if self.use_quick_gelu:
+            h = quick_gelu(h)
+        else:
+            h = F.gelu(h, approximate="none" if self.use_exact_gelu else "tanh")
         return x + self.mlp.c_proj(h)
 
 
@@ -94,7 +104,8 @@ class CLIPTextEncoder(nn.Module):
             torch.randn(config.context_length, config.width) * 0.01)
         self.transformer = nn.Module()
         self.transformer.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(config.width, config.heads, config.use_quick_gelu)
+            ResidualAttentionBlock(config.width, config.heads, config.use_quick_gelu,
+                                   config.use_exact_gelu)
             for _ in range(config.layers))
         self.ln_final = LayerNormFp32(config.width)
 

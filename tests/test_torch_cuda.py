@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from minddiffusion_tpu_torch.models.layers import conv3x3_dispatch
-from minddiffusion_tpu_torch.ops import (attention, attn_variants, conv3x3, flash_attention,
-                                         fused_ff, glide_tail, gn_stats, winograd, winograd43)
+from minddiffusion_tpu_torch.ops import (attention, attn_diag, attn_variants, conv3x3,
+                                         flash_attention, fused_ff, glide_tail, gn_stats,
+                                         winograd, winograd43)
 
 
 @pytest.fixture
@@ -546,3 +547,59 @@ def test_attn_variant_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="C_out % 8"):
         attn_variants.flash_attention_packed_out(qb, qb, qb, w, torch.zeros(100, device=cuda),
                                                  0.125, 5)
+
+
+def _diag_launches() -> int:
+    return sum(f.launches for f in (attn_diag.diag, attn_diag.diag_kt, attn_diag.diag_slice,
+                                    attn_diag.diag_bf16s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(attn_diag.variants()))
+@pytest.mark.parametrize("b,n,c", [(2, 256, 128), (1, 512, 320)])
+def test_attn_diag_kernel_matches_plain(cuda, name, b, n, c):
+    """K12, each mode, on randn inputs (logits well below 88), each output
+    within 2e-2 of its scale (`hold_scale`: row by row, or output by output,
+    for the raw exp modes)."""
+    heads = c // 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    fn, plain = attn_diag.variants()[name]
+    before = _diag_launches()
+    got = fn(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert _diag_launches() == before + 1
+    ref = plain(q, k, v, heads)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    scale = attn_diag.hold_scale(name, ref, heads)
+    assert ((got.float() - ref.float()).abs() <= 2e-2 * scale).all()
+
+
+@pytest.mark.cuda
+def test_attn_diag_overflows_where_the_plain_version_does(cuda):
+    """No scale and no max: a row whose diagonal logit passes 88 is inf or
+    NaN in the kernel as in the plain version (q = k = v, one row scaled)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(1, 128, 128, generator=g, device=cuda) * 0.5
+    x[0, 5] *= 3.0                                  # |x_5|^2 per head ~ 144 > 88
+    x = x.to(torch.bfloat16)
+    for name in ("diag_exp", "diag_full", "diag_fp32pv", "diag_bf16s"):
+        fn, plain = attn_diag.variants()[name]
+        got, ref = fn(x, x, x, 2), plain(x, x, x, 2)
+        torch.cuda.synchronize()
+        assert not torch.isfinite(got[0, 5].float()).any(), name
+        assert torch.equal(torch.isfinite(got.float()), torch.isfinite(ref.float())), name
+
+
+@pytest.mark.cuda
+def test_attn_diag_refusals(cuda):
+    q = torch.zeros(1, 128, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attn_diag.diag(q.float(), q.float(), q.float(), 2, "full")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        attn_diag.diag(q[:, :100], q[:, :100], q[:, :100], 2, "full")
+    with pytest.raises(ValueError, match="head dim"):
+        attn_diag.diag_bf16s(q, q, q, 4)
+    with pytest.raises(ValueError, match="mode"):
+        attn_diag.diag_kt(q, q, q, 2, "exp")

@@ -538,22 +538,31 @@ def test_serve_cli_glide_on_the_cpu_answers_a_request(tmp_path):
     assert proc.poll() is not None
 
 
-def test_serve_cli_sd2_with_a_stub_tokenizer(monkeypatch):
+def test_serve_cli_sd2_with_a_stub_tokenizer(monkeypatch, tmp_path):
+    """The SD engine of the serve CLI, with the seeded random weights and
+    with the same weights from a .safetensors --ckpt: the same image."""
     class StubTokenizer:
         def tokenize(self, texts):
             return np.stack([toy_tokenize(t) for t in texts])
 
     monkeypatch.setattr(cli_common, "tokenizer_for", lambda family: StubTokenizer())
-    args = serve.build_argparser().parse_args(
-        ["--debug_tiny", "--device", "cpu", "--dtype", "fp32", "--height", "64", "--width",
-         "64", "--steps", "2", "--batch_size", "2"])
-    engine, desc = serve._build_sd_engine(args)
-    engine.start()
-    try:
-        img = engine.submit("a cat", seed=1, timeout=300)
-        assert img.shape == (64, 64, 3) and desc == "ddim-2 64x64"
-    finally:
-        engine.stop()
+    argv = ["--debug_tiny", "--device", "cpu", "--dtype", "fp32", "--height", "64", "--width",
+            "64", "--steps", "2", "--batch_size", "2"]
+    ckpt = str(tmp_path / "sd2.safetensors")
+    weights, report = sd_weights.export_sd_checkpoint(
+        cli_common.build_sd("sd2", "fp32", torch.device("cpu"), tiny=True))
+    assert not report
+    sd_weights.save_safetensors(weights, ckpt)
+    images = []
+    for extra in ([], ["--ckpt", ckpt]):
+        engine, desc = serve._build_sd_engine(serve.build_argparser().parse_args(argv + extra))
+        engine.start()
+        try:
+            images.append(engine.submit("a cat", seed=1, timeout=300))
+        finally:
+            engine.stop()
+        assert images[-1].shape == (64, 64, 3) and desc == "ddim-2 64x64"
+    np.testing.assert_array_equal(images[0], images[1])
 
 
 def test_serve_cli_refusals(monkeypatch, tmp_path):
@@ -563,11 +572,11 @@ def test_serve_cli_refusals(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(SystemExit, match="fp32"):
         serve.main(["--family", "glide", "--debug_tiny", "--dtype", "fp32"])
+    with pytest.raises(SystemExit, match="orbax directory"):      # the one format refused
+        serve.main(["--family", "sd2", "--device", "cpu", "--dtype", "fp32",
+                    "--ckpt", str(tmp_path)])
     (tmp_path / "w.safetensors").write_bytes(b"{}")
     (tmp_path / "ms.ckpt").write_bytes(b"\x0a\x05proto")
-    for path in (tmp_path / "w.safetensors", tmp_path / "ms.ckpt", tmp_path):
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1"):
-            serve.main(["--family", "sd2", "--device", "cpu", "--dtype", "fp32",
-                        "--ckpt", str(path)])
     torch.save({"a": torch.zeros(1)}, tmp_path / "ok.ckpt")
-    serve.check_ckpt(str(tmp_path / "ok.ckpt"))
+    for name in ("w.safetensors", "ms.ckpt", "ok.ckpt"):       # build_sd reads all three
+        serve.check_ckpt(str(tmp_path / name))
