@@ -11,9 +11,11 @@ Phases (one line each; any failure raises and exits non-zero):
      each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes, beside F.scaled_dot_product_attention on the same tensors;
-  3. Winograd conv kernel (K2) vs its plain version at main-path shapes,
-     beside cuDNN's F.conv2d;
-  4. one full-width SD2 UNet eval, kernel path vs plain path;
+  3. Winograd conv kernel (K2) vs its plain version at every (shape,
+     prologue) of the main path's 21 launches an eval and a ragged case,
+     beside cuDNN's F.conv2d, the bound and the TFLOP/s reached;
+  4. one full-width SD2 UNet eval, kernel path vs plain path, with K2's
+     launches by shape held against phase 3's list;
   5. the main path: SD2 txt2img 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
      seeded random weights, with kernel launch counts;
   6. head-split attention kernel (K4) vs its plain version at the 768x1024
@@ -25,7 +27,8 @@ Phases (one line each; any failure raises and exits non-zero):
   9. txt2img 512^2 with the DPM-Solver++ (2M) sampler, 20 steps, batch 8,
      launch counts;
  10. gathered-tile Winograd kernel (K3) vs its plain version at the phase-3
-     shapes, beside K2 and cuDNN's F.conv2d on the same tensors;
+     shapes, beside its host gather, K2 and cuDNN's F.conv2d on the same
+     tensors;
  11. one full-width Wukong-Huahua (SD1) UNet eval, kernel path vs plain path;
  12. path A: Wukong txt2img 512^2, DPM-Solver++ (2M) 15 steps, CFG 7.5,
      batch 4: launch counts, identical bytes on a rerun;
@@ -342,10 +345,22 @@ def phase2(gen: torch.Generator, table: dict) -> None:
                  bound_by=bound_by, bound_term=term))
 
 
-WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue)
-    ("32x32_640_gn", 16, 32, 32, 640, 640, True),
-    ("16x16_2560_gn", 16, 16, 16, 2560, 1280, True),
-    ("32x32_1280_plain", 16, 32, 32, 1280, 1280, False),
+# Every (shape, prologue) of the 21 K2 launches of an SD2 UNet eval at
+# 512^2 (CFG batch 16), with its launches per eval (phase 4 holds the list
+# against the launches it logs), and one ragged case: P 192 is no multiple of
+# the fused kernel's 128 tiles, nor C_out 768 + C_in 576 of its 64 channels.
+WINO_CASES = [  # (label, B, H, W, C_in, C_out, prologue, launches per SD2 eval)
+    ("32x32_640_gn", 16, 32, 32, 640, 640, True, 6),
+    ("16x16_640to1280_gn", 16, 16, 16, 640, 1280, True, 1),
+    ("16x16_1280_gn", 16, 16, 16, 1280, 1280, True, 6),
+    ("16x16_1280_plain", 16, 16, 16, 1280, 1280, False, 1),
+    ("16x16_2560_gn", 16, 16, 16, 2560, 1280, True, 2),
+    ("16x16_1920_gn", 16, 16, 16, 1920, 1280, True, 1),
+    ("32x32_1280_plain", 16, 32, 32, 1280, 1280, False, 1),
+    ("32x32_1920to640_gn", 16, 32, 32, 1920, 640, True, 1),
+    ("32x32_1280to640_gn", 16, 32, 32, 1280, 640, True, 1),
+    ("32x32_960to640_gn", 16, 32, 32, 960, 640, True, 1),
+    ("ragged_b3_16x16_576to768_gn", 3, 16, 16, 576, 768, True, 0),
 ]
 # The case the JSON line reports per kernel: K2's is the one without the
 # GN+SiLU prologue, where one cuDNN call computes the same function.
@@ -360,18 +375,43 @@ MAIN_CASE = {"packed_attention": "unet_64x64_self", "winograd": "32x32_1280_plai
              **{name: "ds1_16x4096x320" for name in KERNELS if name.startswith("diag_")}}
 
 
+def wino_operands(gen: torch.Generator, b: int, h: int, w: int, ci: int, co: int, gn: bool):
+    """x, the HWIO kernel, U, bias and the prologue's mult / add (or None)."""
+    from minddiffusion_tpu_torch.ops import winograd as wg
+
+    x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
+    kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
+    u = wg.transform_weights(kern).to(torch.bfloat16).contiguous()
+    bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+    mult = add = None
+    if gn:
+        mult = 1.0 + 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+        add = 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+    return x, kern, u, bias, mult, add
+
+
+def wino_library_ms(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> float:
+    """cuDNN's conv on the NCHW view of the same NHWC memory (conv only: no
+    library call takes the GN+SiLU prologue)."""
+    x_cl, w_oihw = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).to(torch.bfloat16)
+    bias_bf16 = bias.to(torch.bfloat16)
+    return cuda_ms(lambda: F.conv2d(x_cl, w_oihw, bias_bf16, padding=1))
+
+
+def wino_work(b: int, h: int, w: int, ci: int, co: int, gn: bool) -> "tuple[float, float]":
+    """(flops of the 16 Winograd products, bytes of x, U, bias, the prologue's
+    mult / add and y, each once)."""
+    p = b * (h // 2) * (w // 2)
+    return (2.0 * 16 * p * ci * co,
+            2.0 * b * h * w * (ci + co) + 2.0 * 16 * ci * co + 4.0 * co
+            + (8.0 * b * ci if gn else 0.0))
+
+
 def phase3(gen: torch.Generator, table: dict) -> None:
     from minddiffusion_tpu_torch.ops import winograd as wg
 
-    for label, b, h, w, ci, co, gn in WINO_CASES:
-        x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
-        kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
-        u = wg.transform_weights(kern).to(torch.bfloat16).contiguous()
-        bias = torch.randn(co, generator=gen, device="cuda") * 0.1
-        mult = add = None
-        if gn:
-            mult = 1.0 + 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
-            add = 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+    for label, b, h, w, ci, co, gn, per_eval in WINO_CASES:
+        x, kern, u, bias, mult, add = wino_operands(gen, b, h, w, ci, co, gn)
         ref = wg.winograd_plain(x, u, bias, mult, add)
         got = wg.conv3x3_winograd(x, u, bias, mult, add)
         torch.cuda.synchronize()
@@ -379,24 +419,19 @@ def phase3(gen: torch.Generator, table: dict) -> None:
         assert torch.isfinite(got.float()).all(), label
         ms = cuda_ms(lambda: wg.conv3x3_winograd(x, u, bias, mult, add))
         plain_ms = cuda_ms(lambda: wg.winograd_plain(x, u, bias, mult, add), runs=5)
-        # cuDNN's conv on the NCHW view of the same NHWC memory (conv only:
-        # no library call takes the GN+SiLU prologue)
-        x_cl, w_oihw = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).to(torch.bfloat16)
-        bias_bf16 = bias.to(torch.bfloat16)
-        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, bias_bf16, padding=1))
-        p = b * (h // 2) * (w // 2)
-        bound_ms, bound_by = bound(
-            2.0 * 16 * p * ci * co,      # the 16 Winograd GEMMs
-            2.0 * b * h * w * (ci + co) + 2.0 * 16 * ci * co + 4.0 * co
-            + (8.0 * b * ci if gn else 0.0))
+        library_ms = wino_library_ms(x, kern, bias)
+        flops, nbytes = wino_work(b, h, w, ci, co, gn)
+        bound_ms, bound_by = bound(flops, nbytes)
+        tflops = flops / ms / 1e9
         log(f"[phase 3] wino {label} B={b} {h}x{w} {ci}->{co} prologue={gn} "
-            f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"cudnn_conv_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            f"per_eval={per_eval} max_abs_err={abs_err:.3e} rel_err={err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} cudnn_conv_ms={library_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={tflops:.1f}")
         assert err <= REL_TOL, (label, err)
         table["winograd"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by))
+                 bound_by=bound_by, tflops=tflops, per_eval=per_eval))
 
 
 def wrappers() -> dict:
@@ -449,6 +484,31 @@ def sd2_models(gen: torch.Generator):
                            device="cuda", generator=gen)
 
 
+def winograd_histogram(fn) -> dict:
+    """K2's launches in `fn()` by (B, H, W, C_in, C_out, prologue): the
+    layers reach the wrapper through its module, so a recording stand-in is
+    put there for the call (carrying the launch count, which the wrapper
+    adds to under its module name)."""
+    from minddiffusion_tpu_torch.ops import winograd as wg
+
+    hist: dict = {}
+    kernel = wg.conv3x3_winograd
+
+    def recording(x, u, bias, gn_mult=None, gn_add=None):
+        key = (*x.shape, u.shape[-1], gn_mult is not None)
+        hist[key] = hist.get(key, 0) + 1
+        return kernel(x, u, bias, gn_mult, gn_add)
+
+    recording.launches = kernel.launches
+    wg.conv3x3_winograd = recording
+    try:
+        fn()
+    finally:
+        wg.conv3x3_winograd = kernel
+        kernel.launches = recording.launches
+    return hist
+
+
 def phase4(gen: torch.Generator) -> None:
     """One full-width SD2 UNet eval (CFG batch 16, 64x64 latents, bf16,
     random weights with no zero-init) on the kernel path vs the plain path."""
@@ -470,7 +530,12 @@ def phase4(gen: torch.Generator) -> None:
         ms = cuda_ms(lambda: unet(x, t, ctx), runs=5)
         with ops.plain_reference():
             plain_ms = cuda_ms(lambda: unet(x, t, ctx), runs=5)
+        hist = winograd_histogram(lambda: unet(x, t, ctx))
     assert counts == PER_UNET_EVAL, (counts, PER_UNET_EVAL)
+    expected_hist = {(b, h, w, ci, co, gn): n
+                     for _, b, h, w, ci, co, gn, n in WINO_CASES if n}
+    log(f"[phase 4] K2 launches by (B, H, W, C_in, C_out, prologue): {dict(hist)}")
+    assert hist == expected_hist, (hist, expected_hist)
     assert torch.isfinite(eps_k).all() and eps_k.shape == (b, h8, h8, 4)
     rel_l2 = ((eps_k - eps_p).norm() / eps_p.norm()).item()
     log(f"[phase 4] unet sd2 B={b} 64x64 bf16 launches={counts} "
@@ -730,15 +795,8 @@ def phase10(gen: torch.Generator, table: dict) -> None:
     shapes, beside K2 and cuDNN's conv on the same tensors."""
     from minddiffusion_tpu_torch.ops import winograd as wg
 
-    for label, b, h, w, ci, co, gn in WINO_CASES:
-        x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
-        kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
-        u = wg.transform_weights(kern).to(torch.bfloat16).contiguous()
-        bias = torch.randn(co, generator=gen, device="cuda") * 0.1
-        mult = add = None
-        if gn:
-            mult = 1.0 + 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
-            add = 0.1 * torch.randn(b, ci, generator=gen, device="cuda")
+    for label, b, h, w, ci, co, gn, _ in WINO_CASES:
+        x, kern, u, bias, mult, add = wino_operands(gen, b, h, w, ci, co, gn)
         ref = wg.winograd_gathered_plain(x, u, bias, mult, add)
         got = wg.conv3x3_winograd_gathered(x, u, bias, mult, add)
         k2 = wg.conv3x3_winograd(x, u, bias, mult, add)
@@ -747,25 +805,22 @@ def phase10(gen: torch.Generator, table: dict) -> None:
         _, err_k2 = errors(got, k2)
         assert torch.isfinite(got.float()).all(), label
         ms = cuda_ms(lambda: wg.conv3x3_winograd_gathered(x, u, bias, mult, add))
+        gather_ms = cuda_ms(lambda: wg.gather_tiles(x, mult, add))
         plain_ms = cuda_ms(lambda: wg.winograd_gathered_plain(x, u, bias, mult, add), runs=5)
         k2_ms = cuda_ms(lambda: wg.conv3x3_winograd(x, u, bias, mult, add))
-        x_cl, w_oihw = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).to(torch.bfloat16)
-        bias_bf16 = bias.to(torch.bfloat16)
-        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_oihw, bias_bf16, padding=1))
-        p = b * (h // 2) * (w // 2)
-        bound_ms, bound_by = bound(
-            2.0 * 16 * p * ci * co,
-            2.0 * b * h * w * (ci + co) + 2.0 * 16 * ci * co + 4.0 * co
-            + (8.0 * b * ci if gn else 0.0))
+        library_ms = wino_library_ms(x, kern, bias)
+        flops, nbytes = wino_work(b, h, w, ci, co, gn)
+        bound_ms, bound_by = bound(flops, nbytes)
         log(f"[phase 10] wino_gathered {label} B={b} {h}x{w} {ci}->{co} host_gn={gn} "
             f"max_abs_err={abs_err:.3e} rel_err={err:.3e} rel_err_vs_k2={err_k2:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} k2_ms={k2_ms:.4f} "
-            f"cudnn_conv_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            f"kernel_ms={ms:.4f} gather_ms={gather_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"k2_ms={k2_ms:.4f} cudnn_conv_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) tflops={flops / ms / 1e9:.1f}")
         assert err <= REL_TOL and err_k2 <= REL_TOL, (label, err, err_k2)
         table["winograd_gathered"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
-                 k2_ms=k2_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by))
+                 gather_ms=gather_ms, k2_ms=k2_ms, library_ms=library_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9))
 
 
 def zh_tokens(batch: int, fill) -> torch.Tensor:

@@ -11,7 +11,8 @@ prologue folded to a per-(batch, channel) affine `silu(x * mult + add)`:
     under MDT_WINO_TUNE=dma=0): the prologue runs on the host (rounded to
     the activation dtype), the host pads and gathers overlapping row windows
     into a tile array (`gather_tiles`), and the kernel reads that array.
-Both kernels are in csrc/winograd.cu and share its GEMM and output transform.
+Both kernels are in csrc/winograd.cu; they differ in the input transform and
+share the fused kernel that runs the 16 products and the output transform.
 
 B^T = [[1,0,-1,0],[0,1,1,0],[0,-1,1,0],[0,1,0,-1]]
 G   = [[1,0,0],[.5,.5,.5],[.5,-.5,.5],[0,0,1]]
@@ -31,9 +32,9 @@ from minddiffusion_tpu_torch.ops import _build
 from minddiffusion_tpu_torch.utils.flags import flags
 
 _SIGNATURES = {
-    "mdt_winograd_conv3x3": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    "mdt_winograd_conv3x3": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "mdt_winograd_conv3x3_gathered": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "mdt_winograd_conv3x3_gathered": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 BLOCK_ROWS = 32   # rows of a gathered tile (the JAX `block_rows` default)
@@ -171,6 +172,13 @@ def _check(checks, x: torch.Tensor) -> None:
                              f"{tuple(t.shape)}")
 
 
+def _check_aligned(x: torch.Tensor, u: torch.Tensor) -> None:
+    """The kernels read their input (x or the tile array) in 8-byte and U
+    (by TMA) in 16-byte units."""
+    if x.data_ptr() % 8 or u.data_ptr() % 16:
+        raise ValueError("the input must be 8-byte and u 16-byte aligned")
+
+
 def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor,
                      gn_mult: Optional[torch.Tensor] = None,
                      gn_add: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -193,9 +201,9 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor,
     if x.device.type != "cuda" or h % 2 or w % 2 or not kernel_supports(x, c_out):
         raise ValueError(f"kernel takes CUDA bf16 NHWC with H, W even and "
                          f"C_in, C_out % 8 == 0; got {tuple(x.shape)} -> {c_out}")
+    _check_aligned(x, u)
     p = b * (h // 2) * (w // 2)
     vbuf = torch.empty((16, p, c_in), dtype=torch.bfloat16, device=x.device)
-    mbuf = torch.empty((16, p, c_out), dtype=torch.float32, device=x.device)
     out = torch.empty((b, h, w, c_out), dtype=torch.bfloat16, device=x.device)
     lib = _build.load("winograd", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -204,8 +212,7 @@ def conv3x3_winograd(x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor,
             x.data_ptr(), u.data_ptr(), bias.data_ptr(),
             None if gn_mult is None else gn_mult.data_ptr(),
             None if gn_add is None else gn_add.data_ptr(),
-            vbuf.data_ptr(), mbuf.data_ptr(), out.data_ptr(),
-            b, h, w, c_in, c_out, stream)
+            vbuf.data_ptr(), out.data_ptr(), b, h, w, c_in, c_out, stream)
     _build.check(err, "winograd launch")
     conv3x3_winograd.launches += 1
     return out
@@ -240,17 +247,17 @@ def conv3x3_winograd_gathered(x: torch.Tensor, u: torch.Tensor, bias: torch.Tens
         raise ValueError(f"kernel takes CUDA bf16 NHWC with H, W even and "
                          f"C_in, C_out % 8 == 0; got {tuple(x.shape)} -> {c_out}")
     tiles = gather_tiles(x, gn_mult, gn_add, block_rows)
+    _check_aligned(tiles, u)
     n_tiles, bh = tiles.shape[1], tiles.shape[2] - 2
     p = b * n_tiles * (bh // 2) * (w // 2)
     vbuf = torch.empty((16, p, c_in), dtype=torch.bfloat16, device=x.device)
-    mbuf = torch.empty((16, p, c_out), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n_tiles * bh, w, c_out), dtype=torch.bfloat16, device=x.device)
     lib = _build.load("winograd", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mdt_winograd_conv3x3_gathered(
             tiles.data_ptr(), u.data_ptr(), bias.data_ptr(), vbuf.data_ptr(),
-            mbuf.data_ptr(), out.data_ptr(), b, n_tiles, bh, w, c_in, c_out, stream)
+            out.data_ptr(), b, n_tiles, bh, w, c_in, c_out, stream)
     _build.check(err, "winograd gathered launch")
     conv3x3_winograd_gathered.launches += 1
     return out if out.shape[1] == h else out[:, :h].contiguous()

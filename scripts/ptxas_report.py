@@ -1,0 +1,43 @@
+"""Print ptxas's report (registers, shared memory, spills per kernel) for one
+of the port's CUDA sources, and count the tensor-core instructions in its
+SASS: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
+
+    python3 scripts/ptxas_report.py winograd [more names]
+
+Compiles minddiffusion_tpu_torch/ops/csrc/<name>.cu with the flags of
+`ops/_build.py` plus `-Xptxas -v` into a temporary directory; needs the CUDA
+toolkit (nvcc, cuobjdump), no card.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from minddiffusion_tpu_torch.ops import _build  # noqa: E402
+
+
+def report(name: str) -> None:
+    nvcc = _build.nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = os.path.join(tmp, f"lib{name}.so")
+        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
+                               str(_build.CSRC / f"{name}.cu")],
+                              capture_output=True, text=True, check=True)
+        lines = [ln for ln in proc.stderr.splitlines() if ln.strip()]
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                              check=True).stdout
+    print(f"== {name}.cu: ptxas -v")
+    print("\n".join(lines))
+    counts = {op: sum(f" {op}" in ln for ln in sass.splitlines()) for op in ("HGMMA", "HMMA")}
+    print(f"== {name}.cu: SASS lines with HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}")
+
+
+if __name__ == "__main__":
+    for n in sys.argv[1:] or ["winograd"]:
+        report(n)

@@ -133,6 +133,58 @@ def test_winograd_gathered_kernel_matches_plain(cuda, gn, h, w, block_rows):
     assert err.item() <= 2e-2
 
 
+def _wino_operands(g, device, b, h, w, ci, co, gn):
+    x = torch.randn(b, h, w, ci, generator=g, device=device).to(torch.bfloat16)
+    kern = torch.randn(3, 3, ci, co, generator=g, device=device) * (9 * ci) ** -0.5
+    u = winograd.transform_weights(kern).to(torch.bfloat16).contiguous()
+    bias = torch.randn(co, generator=g, device=device)
+    mult = 1.0 + 0.1 * torch.randn(b, ci, generator=g, device=device) if gn else None
+    add = 0.1 * torch.randn(b, ci, generator=g, device=device) if gn else None
+    return x, u, bias, mult, add
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (3, 16, 16, 576, 768),     # P 192: ragged against 128 tiles; C_out 768 = 12 x 64
+    (1, 16, 24, 520, 136),     # B 1, H != W, C_in 520 (a partial 64-channel slice), C_out 136
+    (2, 12, 20, 8, 8),         # the smallest widths the kernels take
+    (1, 48, 48, 768, 200),     # P 576 over 5 row blocks, C_out 200 ragged against 64
+])
+def test_winograd_kernels_at_ragged_edges(cuda, gathered, gn, b, h, w, ci, co):
+    """K2 and K3 against their plain versions where P, C_in or C_out is not a
+    multiple of the fused kernel's block (128 tiles, 64 channels)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, u, bias, mult, add = _wino_operands(g, cuda, b, h, w, ci, co, gn)
+    if gathered:
+        ref = winograd.winograd_gathered_plain(x, u, bias, mult, add)
+        got = winograd.conv3x3_winograd_gathered(x, u, bias, mult, add)
+    else:
+        ref = winograd.winograd_plain(x, u, bias, mult, add)
+        got = winograd.conv3x3_winograd(x, u, bias, mult, add)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, co) and torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("gn", [True, False])
+def test_winograd_kernels_are_batch_position_independent(cuda, gathered, gn):
+    """One image alone (B 1) and the same image at row 5 of a B-8 call give
+    the same bytes: the kernels' sums do not depend on B, P or the row."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, u, bias, mult, add = _wino_operands(g, cuda, 8, 16, 16, 640, 640, gn)
+    conv = winograd.conv3x3_winograd_gathered if gathered else winograd.conv3x3_winograd
+    batch = conv(x, u, bias, mult, add)
+    alone = conv(x[5:6].contiguous(), u, bias, None if mult is None else mult[5:6].contiguous(),
+                 None if add is None else add[5:6].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[5])
+
+
 @pytest.mark.cuda
 def test_dma_off_sends_winograd_sites_to_the_gathered_kernel(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(5)
