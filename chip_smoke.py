@@ -95,12 +95,16 @@ Phases (one line each; any failure raises and exits non-zero):
      minddiffusion_tpu_torch.cli.serve --family glide` in a subprocess
      answers one request and exits on SIGTERM;
  27. the packed-attention variants K10a (host ones fold), K10b (in-kernel
-     fold), K10c (projections fused), K10d (output projection fused) and
-     K11 (K10a's function over its kernel) vs their plain versions at the
-     SD2 UNet's ds1 / ds2 shapes and bench_attention.py's, a ragged Nq, Nk
-     77 and Nq + 128, C_out != C, both softmax modes; beside SDPA's flash
-     backend or the unfused chain, and K1 at the same shape. No path of
-     either package launches them;
+     fold), K10c (projections fused) and K10d (output projection fused)
+     and K11 (K10a's function over its kernel) vs their plain versions at
+     the SD2 UNet's ds1 / ds2 shapes and bench_attention.py's, a ragged Nq,
+     Nk 77 and Nq + 128, C_out != C, K10d at C 1280 (its 64-row tier),
+     both softmax modes; beside SDPA's flash backend or the unfused chain,
+     and K1 at the same shape; CTAs (as the launchers report them) and
+     waves of each case, K10c's two launches (its projection GEMM, then
+     the attention) timed apart; then `scripts/ptxas_report.py
+     attn_variants`, whose SASS must show wgmma and no mma.sync in the
+     K10c / K10d kernels. No path of either package launches them;
  28. K12, the ten ds1 ablation modes of bench_attn_ds1.py and bf16s with
      the packed bf16 exp, vs their plain versions at its shape (16, 4096,
      320, 5 heads): on independent randn q, k, v and on the script's own
@@ -146,6 +150,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -2243,7 +2248,11 @@ VARIANT_CASES = [  # (label, B, Nq, Nk, C, exact): K10a, K10b and K10d
 ]
 PROJ_CASES = [("ds1_16x4096x320", 16, 4096, 320, False), ("ds2_16x1024x640", 16, 1024, 640, False),
               ("ds2_16x1024x640_exact", 16, 1024, 640, True)]
-OUT_EXTRA_CASES = [("ds2_c640_to_c320", 16, 1024, 1024, 640, False, 320)]
+OUT_EXTRA_CASES = [("ds2_c640_to_c320", 16, 1024, 1024, 640, False, 320),
+                   # K11's ds4 shape: the out kernel's 64-row tier (C > 640)
+                   ("ds4_16x256x1280", 16, 256, 256, 1280, True, 1280)]
+# the kernels of attn_variants.cu that must run wgmma and no mma.sync
+WGMMA_KERNELS = ("attn_out_kernel", "qkv_proj_kernel")
 K11_CASES = [  # bench_attention.py:111-113 (exact, as its main runs `ones`), a ragged Nq
     ("ds1_16x4096x320", 16, 4096, 4096, 320, True),
     ("ds2_16x1024x640", 16, 1024, 1024, 640, True),
@@ -2272,18 +2281,32 @@ def variant_bound(b: int, nq: int, nk: int, c: int, proj_flops: float = 0.0,
 def phase27(gen: torch.Generator, table: dict) -> None:
     """K10a-d and K11 against their plain versions at the SD2 UNet's ds1 and
     ds2 self-attention shapes and bench_attention.py's, with a ragged Nq,
-    Nk 77 and Nk = Nq + 128, C_out != C, both softmax modes; beside SDPA
-    (K10a, K10b, K11), the unfused chain (K10c: three input projections +
-    SDPA + the output projection; K10d: SDPA + the output projection) and
-    K1 at the same shape where K1 takes it (Nk % 64 == 0). No path of either
-    package launches them."""
+    Nk 77 and Nk = Nq + 128, C_out != C, K10d at C 1280, both softmax
+    modes; beside SDPA (K10a, K10b, K11), the unfused chain (K10c: three
+    input projections + SDPA + the output projection; K10d: SDPA + the
+    output projection) and K1 at the same shape where K1 takes it (Nk % 64
+    == 0); then the SASS check of the K10c / K10d kernels. No path of
+    either package launches them."""
     from minddiffusion_tpu_torch.ops import attn_variants as av, flash_attention as fa
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def grid(name):
+        """(CTAs, waves) of the case's attention launch as its launcher
+        reported them: the out kernel (K10c's second launch, K10d) holds
+        one CTA an SM; the ones kernels' residency is not known here."""
+        if name in ("attn_out", "attn_proj"):
+            ctas = av.last_ctas["mdt_attn_out"]
+            return ctas, ctas / sms
+        return av.last_ctas["mdt_attn_ones"], None
+
     def run_case(name, label, b, nq, nk, c, exact, kernel_fn, plain_fn, library_fn,
-                 k1_fn, bnd):
+                 k1_fn, bnd, extra=None):
         ref = plain_fn()
+        av.last_ctas.clear()
         got = kernel_fn()
         torch.cuda.synchronize()
+        ctas, waves = grid(name)
         assert torch.isfinite(got.float()).all(), (name, label)
         abs_err, err = errors(got, ref)
         del ref
@@ -2292,16 +2315,19 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         library_ms = cuda_ms(library_fn, runs=5)
         k1_ms = cuda_ms(k1_fn, runs=5) if k1_fn is not None else None
         bound_ms, bound_by, term = bnd
+        extra = {k: f() for k, f in (extra or {}).items()}
         log(f"[phase 27] {name} {label} B={b} Nq={nq} Nk={nk} C={c} exact={exact} "
             f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"k1_ms={'n/a' if k1_ms is None else f'{k1_ms:.4f}'} "
-            f"bound_ms={bound_ms:.4f} ({term})")
+            f"bound_ms={bound_ms:.4f} ({term}) ctas={ctas} "
+            f"waves={'n/a' if waves is None else f'{waves:.2f}'}"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
         assert err <= REL_TOL, (name, label, err)
         table[name]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 bound_term=term, k1_ms=k1_ms))
+                 bound_term=term, k1_ms=k1_ms, ctas=ctas, waves=waves, **extra))
 
     def sdpa(q, k, v, heads, scale):
         from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2357,12 +2383,22 @@ def phase27(gen: torch.Generator, table: dict) -> None:
             q, k, v = (torch.matmul(x, w) for w in (wqs, wk, wv))
             return F.linear(sdpa(q, k, v, heads, 1.0)(), wo.T, bo16)
 
+        y = av._proj_qkv(x, wq, wk, wv, scale)
         run_case("attn_proj", label, b, n, n, c, exact,
                  lambda: av.flash_attention_packed_proj(*args, exact=exact),
                  lambda: av.attn_proj_plain(*args, exact), chain, None,
                  variant_bound(b, n, n, c, 8.0 * b * n * c * c,
-                               4.0 * b * n * c + 8.0 * c * c + 4.0 * c))
-        del x
+                               4.0 * b * n * c + 8.0 * c * c + 4.0 * c),
+                 # the two launches apart: the GEMM (persistent, at most one
+                 # CTA an SM), then the attention with the Wo epilogue
+                 extra={"gemm_ms": lambda: round(cuda_ms(
+                            lambda: av._proj_qkv(x, wq, wk, wv, scale)), 4),
+                        "attn_ms": lambda: round(cuda_ms(
+                            lambda: av._proj_attend(y, wo, bo, heads, exact)), 4),
+                        "gemm_ctas": lambda: av.last_ctas["mdt_qkv_proj"],
+                        "gemm_bound_ms": lambda: round(bound(
+                            6.0 * b * n * c * c, 2.0 * b * n * c * 4 + 6.0 * c * c)[0], 4)})
+        del x, y
         torch.cuda.empty_cache()
 
     for label, b, nq, nk, c, exact in K11_CASES:
@@ -2378,6 +2414,23 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                  variant_bound(b, nq, nk, c))
         del q, k, v
         torch.cuda.empty_cache()
+    hold_wgmma_sass()
+
+
+def hold_wgmma_sass() -> None:
+    """ptxas -v of attn_variants.cu (registers, spills) and the tensor-core
+    lines in the SASS of each kernel: the out and projection kernels run
+    wgmma (HGMMA) and no mma.sync (HMMA)."""
+    report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
+                                      "ptxas_report.py"), "attn_variants"])
+    for line in report.splitlines():
+        log(f"[phase 27] {line}")
+    for kname in WGMMA_KERNELS:
+        rows = [ln for ln in report.splitlines() if kname in ln and "SASS lines" in ln]
+        assert rows, (kname, "not in the SASS")
+        for ln in rows:
+            hgmma, hmma = (int(x) for x in ln.rsplit("HGMMA ", 1)[1].split(", HMMA "))
+            assert hgmma > 0 and hmma == 0, ln
 
 
 
@@ -2784,7 +2837,8 @@ def main() -> int:
         # count is in launches_by_path, and each was checked above
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
-        for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds"):
+        for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds", "gemm_ms",
+                    "attn_ms"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

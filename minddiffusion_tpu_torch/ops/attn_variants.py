@@ -1,4 +1,4 @@
-"""Variants of the heads-packed attention kernel: four hand-written Hopper
+"""Variants of the heads-packed attention kernel: hand-written Hopper
 kernels behind five wrappers, each beside its plain version.
 
 Ports of benchmarks/research/attn_variants.py (K10) and
@@ -10,13 +10,15 @@ tensors, head h being the column slice [h*D, (h+1)*D):
   * `flash_attention_packed_fold` (K10b): the same fold, the ones column
     built inside the kernel from plain V. D = 64 only.
   * `flash_attention_packed_proj` (K10c): to_out(attention(x Wq * scale,
-    x Wk, x Wv)) + bo in one kernel (two launches: K' and V', then the rest).
+    x Wk, x Wv)) + bo in two launches: one GEMM x @ [Wq * scale | Wk | Wv]
+    into a (B N, 3C) workspace, then K10d's kernel on it at scale 1.
   * `flash_attention_packed_out` (K10d): attention(q, k, v) @ Wo + bo, the
     output projection in the epilogue; C_out may differ from C.
   * `ones_attention` (K11): K10a's function, a second entry point over its
     kernel (the TPU version leaves q unpadded; the result is the same).
-CUDA source csrc/attn_variants.cu. Weights are in the JAX layout, (C_in,
-C_out).
+CUDA source csrc/attn_variants.cu: K10a, K10b and K11 run one mma.sync
+kernel; K10c and K10d run wgmma kernels fed by TMA. Weights are in the JAX
+layout, (C_in, C_out).
 
 Softmax, as the TPU kernels have it: `exact` subtracts the row max; with
 exact=False, K10a, K10b and K11 take exp(s - 20) and K10c, K10d raw exp(s),
@@ -34,7 +36,6 @@ Forward only, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -42,13 +43,14 @@ from minddiffusion_tpu_torch.ops import _build
 
 FAST_SHIFT = 20.0      # `_FAST_SHIFT` of the exp(s - 20) variants
 KERNEL_HEAD_DIM = 64
-KERNEL_MAX_C = 1280    # the out kernels keep a 64 x C q tile in shared memory
+KERNEL_MAX_C = 1280    # the out kernel keeps its q tile (rows x C) in shared memory
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "mdt_attn_ones": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
-    "mdt_attn_out": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "mdt_kv_proj": [_P] * 5 + [_I] * 2 + [_P],
+_SIGNATURES = {   # each entry ends with an int* that receives its launch's CTAs
+    "mdt_attn_ones": [_P] * 4 + [_I] * 7 + [_F, _I, _P, _P],
+    "mdt_attn_out": [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P],
+    "mdt_qkv_proj": [_P] * 5 + [_I] * 2 + [_P, _P],
 }
+last_ctas: dict[str, int] = {}   # CTAs of each entry's last launch, as its launcher reports
 ONES_FROM_V, ONES_IN_KERNEL = 1, 2   # mdt_attn_ones' ones_mode
 
 
@@ -150,8 +152,16 @@ def _bf16(what: str, *tensors: torch.Tensor) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(entry: str, *args) -> int:
+    """Calls the C entry `entry` (builds the library) and keeps the CTAs it
+    launched in `last_ctas`; returns its error code."""
+    ctas = ctypes.c_int(0)
+    err = getattr(_build.load("attn_variants", _SIGNATURES), entry)(*args, ctypes.byref(ctas))
+    last_ctas[entry] = ctas.value
+    return err
 
 
 def _ones_launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,10 +175,9 @@ def _ones_launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: Nq and Nk must be >= 1, got {nq}, {nk}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _build.load("attn_variants", _SIGNATURES)
-    err = lib.mdt_attn_ones(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                            nq, nk, c, heads, v_cols, ones_mode, float(scale), int(exact),
-                            _stream(q.device))
+    err = _launch("mdt_attn_ones", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, nq, nk, c, heads, v_cols, ones_mode, float(scale), int(exact),
+                  _stream(q.device))
     _build.check(err, f"{what} launch")
     return out
 
@@ -215,28 +224,53 @@ def flash_attention_packed_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return out
 
 
-def _out_launch(what: str, qx: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                wq: Optional[torch.Tensor], wo: torch.Tensor, bo: torch.Tensor,
-                scale: float, heads: int, exact: bool) -> torch.Tensor:
-    b, nq, c = qx.shape
+def _out_checks(what: str, q: torch.Tensor, k: torch.Tensor, wo: torch.Tensor,
+                bo: torch.Tensor, heads: int) -> None:
+    b, nq, c = q.shape
     nk, c_out = k.shape[1], wo.shape[1]
-    _check(what, qx.device, {"k": (k, (b, nk, c)), "v": (v, (b, nk, c)),
-                             "wo": (wo, (c, c_out)), "bo": (bo, (c_out,))}, heads, c)
-    _bf16(what, qx, k, v)
+    _check(what, q.device, {"wo": (wo, (c, c_out)), "bo": (bo, (c_out,))}, heads, c)
     if c > KERNEL_MAX_C or c_out % 8 or nq < 1 or nk < 1:
         raise ValueError(f"{what}: the kernel takes C <= {KERNEL_MAX_C}, C_out % 8 == 0 "
                          f"and Nq, Nk >= 1; got C={c}, C_out={c_out}, Nq={nq}, Nk={nk}")
-    qx, k, v = (t.contiguous() for t in (qx, k, v))
+
+
+def _attend_out(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: int,
+                wo: torch.Tensor, bo: torch.Tensor, scale: float, heads: int,
+                exact: bool) -> torch.Tensor:
+    """mdt_attn_out on (B, N, C) views whose rows are `ld` elements apart."""
+    b, nq, c = q.shape
     wo = wo.to(torch.bfloat16).contiguous()
     bo = bo.float().contiguous()
-    out = torch.empty(b, nq, c_out, dtype=torch.bfloat16, device=qx.device)
-    lib = _build.load("attn_variants", _SIGNATURES)
-    err = lib.mdt_attn_out(qx.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           None if wq is None else wq.data_ptr(), wo.data_ptr(),
-                           bo.data_ptr(), out.data_ptr(), b, nq, nk, c, c_out, heads,
-                           float(scale), int(exact), _stream(qx.device))
+    out = torch.empty(b, nq, wo.shape[1], dtype=torch.bfloat16, device=q.device)
+    err = _launch("mdt_attn_out", q.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),
+                  bo.data_ptr(), out.data_ptr(), b, nq, k.shape[1], c, wo.shape[1], heads, ld,
+                  float(scale), int(exact), _stream(q.device))
     _build.check(err, f"{what} launch")
     return out
+
+
+def _proj_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """K10c's first launch: (B, N, 3C) = x @ [bf16(Wq * scale) | Wk | Wv],
+    fp32 sums rounded to bf16 (Wq * scale in fp32, then rounded)."""
+    b, n, c = x.shape
+    wqs = (wq.float() * scale).to(torch.bfloat16).contiguous()
+    wk, wv = (w.to(torch.bfloat16).contiguous() for w in (wk, wv))
+    y = torch.empty(b, n, 3 * c, dtype=torch.bfloat16, device=x.device)
+    err = _launch("mdt_qkv_proj", x.data_ptr(), wqs.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                  y.data_ptr(), b * n, c, _stream(x.device))
+    _build.check(err, "flash_attention_packed_proj projection launch")
+    return y
+
+
+def _proj_attend(y: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor, heads: int,
+                 exact: bool) -> torch.Tensor:
+    """K10c's second launch: K10d's kernel on the q, K', V' column blocks of
+    `_proj_qkv`'s output, at scale 1."""
+    c = y.shape[-1] // 3
+    q, k, v = y[..., :c], y[..., c:2 * c], y[..., 2 * c:]
+    return _attend_out("flash_attention_packed_proj", q, k, v, 3 * c, wo, bo, 1.0, heads,
+                       exact)
 
 
 def flash_attention_packed_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -247,8 +281,14 @@ def flash_attention_packed_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     `.launches`."""
     if q.device.type == "cpu":
         return attn_out_plain(q, k, v, wo, bo, scale, heads, exact)
-    out = _out_launch("flash_attention_packed_out", q, k, v, None, wo, bo, scale, heads,
-                      exact)
+    what = "flash_attention_packed_out"
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    _check(what, q.device, {"k": (k, (b, nk, c)), "v": (v, (b, nk, c))}, heads, c)
+    _bf16(what, q, k, v)
+    _out_checks(what, q, k, wo, bo, heads)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = _attend_out(what, q, k, v, c, wo, bo, scale, heads, exact)
     flash_attention_packed_out.launches += 1
     return out
 
@@ -272,15 +312,8 @@ def flash_attention_packed_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Ten
     _check(what, x.device, {f"w{s}": (w, (c, c)) for s, w in zip("qkv", (wq, wk, wv))},
            heads, c)
     _bf16(what, x)
-    x = x.contiguous()
-    wqs = (wq.float() * scale).to(torch.bfloat16).contiguous()
-    wk, wv = (w.to(torch.bfloat16).contiguous() for w in (wk, wv))
-    kv = torch.empty(2, b, n, c, dtype=torch.bfloat16, device=x.device)
-    lib = _build.load("attn_variants", _SIGNATURES)
-    err = lib.mdt_kv_proj(x.data_ptr(), wk.data_ptr(), wv.data_ptr(), kv[0].data_ptr(),
-                          kv[1].data_ptr(), b * n, c, _stream(x.device))
-    _build.check(err, f"{what} K/V launch")
-    out = _out_launch(what, x, kv[0], kv[1], wqs, wo, bo, 1.0, heads, exact)
+    _out_checks(what, x, x, wo, bo, heads)
+    out = _proj_attend(_proj_qkv(x.contiguous(), wq, wk, wv, scale), wo, bo, heads, exact)
     flash_attention_packed_proj.launches += 1
     return out
 

@@ -1,4 +1,4 @@
-// Four variants of the heads-packed attention kernel for Hopper (sm_90a), on
+// Variants of the heads-packed attention kernel for Hopper (sm_90a), on
 // packed (B, N, C = heads * 64) bf16 tensors, head h being the column slice
 // [64h, 64h + 64). They replace the TPU kernels of
 // benchmarks/research/attn_variants.py (K10) and benchmarks/bench_attention.py
@@ -13,54 +13,99 @@
 //  * mdt_attn_ones, ones_mode 2: `flash_attention_packed_fold`
 //    (`_packed_fold_kernel`, :183). The same fold with plain V: the ones
 //    column is written into shared memory as each V tile lands.
-//  * mdt_attn_out with wq == NULL: `flash_attention_packed_out`
-//    (`_packed_out_kernel`, :386), attention(q, k, v) @ Wo + bo with the
-//    output projection in the epilogue.
-//  * mdt_kv_proj, then mdt_attn_out with wq: `flash_attention_packed_proj`
-//    (`_packed_proj_kernel`, :292), to_out(attention(x Wq*scale, x Wk, x Wv))
-//    + bo. The TPU kernel built K' = x Wk and V' = x Wv into VMEM at grid
-//    step 0 and reused them for every q tile, relying on the grid running in
-//    order. Blocks here run in no order, and N x C (2.6 MB at the 64^2 site)
-//    fits no block, so the first launch writes K' and V' (rounded to bf16,
-//    as the TPU kernel rounds its scratch) to a workspace with a 64 x 64
-//    tile GEMM, and the second projects each q tile, attends, and runs the
-//    Wo epilogue. Both launches are this kernel; no library GEMM is called.
+//  * mdt_attn_out: `flash_attention_packed_out` (`_packed_out_kernel`,
+//    :386), attention(q, k, v) @ Wo + bo with the output projection in the
+//    epilogue.
+//  * mdt_qkv_proj, then mdt_attn_out at scale 1: `flash_attention_packed_proj`
+//    (`_packed_proj_kernel`, :292), to_out(attention(x Wq*scale, x Wk,
+//    x Wv)) + bo. The TPU kernel built K' = x Wk and V' = x Wv into VMEM at
+//    grid step 0 and reused them for every q tile, relying on the grid
+//    running in order. Blocks here run in no order, and N x C (2.6 MB at the
+//    64^2 site) fits no block, so the first launch writes q, K' and V'
+//    (each rounded to bf16, as the TPU kernel rounds its scratch) to a
+//    (B N, 3C) workspace in one GEMM, x @ [Wq*scale | Wk | Wv], and the
+//    second is K10d's kernel reading them with a row stride of 3C. The
+//    round trip of q costs 4 B N C bytes (25 us at ds1 at 3.35 TB/s).
 //
-// The TPU kernels hold a whole row of K (Nk up to ~4096) in VMEM and take a
-// plain softmax over it. A block's 227 KB of shared memory does not hold
-// that, so every kernel here runs an online softmax over 64-key tiles: one
-// block per (64-row q tile, head, batch) for the ones kernels, per (64-row q
-// tile, batch) for the out kernels, 4 warps of 16 rows, mma.sync m16n8k16
-// with bf16 operands and fp32 accumulators, K tiles by cp.async, V tiles
-// transposed through registers. Keys past Nk are zero-filled and masked to
-// -inf, rows past Nq are zero and not stored, so any Nq and Nk >= 1 work.
+// The ones kernels (attn_ones_kernel, `attend`): the TPU kernels hold a
+// whole row of K in VMEM and take a plain softmax over it; here an online
+// softmax over 64-key tiles, one block per (64-row q tile, head, batch), 4
+// warps of 16 rows, mma.sync m16n8k16 with bf16 operands and fp32
+// accumulators, K tiles by cp.async, V tiles transposed through registers.
+// Keys past Nk are zero-filled and masked to -inf, rows past Nq are zero
+// and not stored. The ones column: the PV product runs over 9 column tiles
+// of 8 instead of 8, the ninth being [1 0 ... 0], so l comes out of the
+// tensor cores. exact=1 rescales the accumulators, the l column with them,
+// at each new row max; exact=0 is exp(s - 20) (`_FAST_SHIFT`) with no
+// rescale. l is the sum of the rounded P, as on the TPU.
 //
-// The ones column: the PV product runs over 9 column tiles of 8 instead of
-// 8, the ninth being [1 0 ... 0] (the first 8 columns of the augmented
-// half), so l comes out of the tensor cores (1/8 more PV work, no row-sum
-// pass). exact=1 rescales the accumulators, the l column with them, at each
-// new row max; exact=0 is exp(s - 20) (`_FAST_SHIFT`) with no rescale.
-// Because P is rounded to bf16 before PV, l is the sum of the rounded P, as
-// on the TPU.
+// The out kernel (attn_out_kernel) and the projection (qkv_proj_kernel) are
+// Hopper designs: TMA into 128-byte swizzled tiles, full / empty mbarriers,
+// warpgroup 0 the producer (one thread issues every load), the other
+// warpgroups wgmma consumers; no mma.sync, and no thread moves an element
+// of K, V or a weight.
+//  * CTA tile (a template parameter): 64 q rows per consumer warpgroup of
+//    one batch element, the q / o tile (rows x C bf16) held for the whole
+//    CTA. 192 rows (3 consumer warpgroups) up to C 448 where Nq >= 2048:
+//    at ds1 (16, 4096, 320) the third warpgroup hides more of the exps'
+//    and barriers' latency than the 128-row tier
+//    (scripts/attn_variants_ablate.py, `tiles_128`), while at Nq 1024 its
+//    coarser last wave lost. Else 128 rows (2) up to C 640, whose 160 KB
+//    tile still leaves 4 stages, else 64 (1) up to 1280.
+//    The q tile arrives by TMA as one box per head.
+//  * The ring: 8 KB K and V tiles of one 64-key tile of one head, by TMA
+//    from the (B, N, C) tensors at column 64 h, head after head, so the
+//    pipeline does not drain between heads; then Wo in 64-row x 128-column
+//    stages. K and V have a full and an empty barrier each: K is released
+//    once S is done, V once PV is. Up to 8 stages of 16 KB.
+//  * Per key tile, each consumer warpgroup: S = q_h K^T by wgmma m64n64k16
+//    with q_h in registers (loaded from the swizzled tile once a head,
+//    scaled in fp32 and rounded to bf16 there) and K as a K-major B; the
+//    softmax numerators in registers while PV of the previous tile runs;
+//    then S of the next tile and O += P V by wgmma, P from registers (S's
+//    accumulators packed to bf16 are the next product's A fragments) and V
+//    as an MN-major B, as it lies in memory. The other warpgroups' products
+//    run under one's exps (one fp32 ex2 per score, 16 a clock per SM: as
+//    long as the products at D 64); all of them read the same K and V
+//    stage.
+//    Accumulators are written only while no wgmma runs: ptxas otherwise
+//    serializes every wgmma (its C7515 warning).
+//  * At a head's last tile o_h / l, rounded to bf16, overwrites q_h in the
+//    tile (stored at the next tile, once PV is done), in TMA's swizzle
+//    (byte (r, chunk j) at r 128 + 16 (j ^ r % 8)), so after the last head
+//    the tile holds the concatenated heads as a K-major A. The epilogue:
+//    out = o (rows x C) @ Wo by wgmma m64n128k16, Wo an MN-major B (two
+//    64-column boxes, 8 KB apart), the sum over heads in the fp32
+//    accumulators; + bo in fp32, one rounding to bf16, stores clipped at Nq
+//    and C_out. A Wo box wholly past C_out is not loaded.
+//  * Keys past Nk and rows past Nq are TMA's zero fill: keys are masked to
+//    -inf, rows are not stored, so any Nq, Nk >= 1 work.
+//  * Waves, one CTA an SM (the q tile): ds1 22 x 16 = 352 CTAs of 192 rows,
+//    2.67 waves on 132 SMs; ds2 (16, 1024, 640) 8 x 16 = 128 CTAs, 0.97;
+//    ds4 (16, 256, 1280) 4 x 16 = 64 CTAs of 64 rows, half the card. Not
+//    persistent: the next tile's q cannot land in a tile the epilogue
+//    still reads.
+//  * Tried and dropped, as they did not move ds1 or ds2: products issued
+//    in turns between the warpgroups (named barriers), 2-CTA clusters
+//    multicasting K and V (half the L2 reads), fewer stages (3 against 8).
+//    What the time is spent on: scripts/attn_variants_ablate.py.
+//  * qkv_proj_kernel: 128 x 128 output tiles, K 64 a stage, 5 stages of 32
+//    KB, two consumer warpgroups of 64 rows on wgmma m64n128k16 (x K-major,
+//    the weights MN-major as stored); persistent, one CTA an SM, tiles
+//    columns first, so the next tile's loads run under this tile's stores,
+//    which go through shared memory and TMA (whole lines, asynchronous):
+//    stored from registers they took about half of the kernel's time.
 //
-// The out kernels keep the q tile (64 x C bf16) in shared memory. Head h's
-// output o_h, rounded to bf16 as the TPU kernel rounds it, overwrites q_h
-// (each warp its own rows) once head h is done, so after the last head the
-// buffer holds the concatenated heads and the epilogue computes
-// o (64 x C) @ Wo (C x C_out) in 64-column chunks, Wo streamed through
-// shared memory in 64 x 64 tiles: the sum over heads accumulates in fp32
-// inside the product. + bo in fp32, one rounding to bf16. Their softmax is
-// the TPU kernels': exact=1 the row max, exact=0 raw exp(s) with no shift
-// (fp32 overflow above logit ~88), l the fp32 sum of the unrounded P.
-// Shared memory 64 x (C + 8) x 2 B + 36 KB: C up to 1280.
+// Softmax, as the TPU kernels have it: exact=1 the row max, exact=0 raw
+// exp(s) with no shift (fp32 overflow above logit ~88); P rounded to bf16
+// before PV, l the fp32 sum of the unrounded P.
 //
 // What bounds them on the H100: at the UNet sites (D = 64, 1024-4096 keys)
 // 4 Nq Nk D flops per head against 6 N C bytes, far above the ~295
-// flop/byte ridge; the tensor cores and one fp32 exp per score (16 a clock
-// per SM) set the floor, and the projections of the out kernels add
-// 2 N C C_out (K10d) or 8 N C^2 (K10c) flops. This is the simple plan:
-// single-stage tiles, no warp specialisation, one block of 128 threads per
-// SM for the out kernels at C 640 (their shared q tile).
+// flop/byte ridge; the tensor cores and one fp32 exp per score set the
+// floor (ds1: 0.347 ms of products, 0.321 ms of exps), and the projections
+// add 2 N C C_out (K10d) or 8 N C^2 (K10c) flops.
+#include "hopper.cuh"
 #include "mma.cuh"
 
 #include <math.h>
@@ -76,7 +121,7 @@ constexpr int LDH = D + AP;        // a row of a Q, K, A or transposed W tile
 constexpr int LDT = BK + AP;       // a row of a transposed V tile
 constexpr int NT = D / 8;          // 8-column output tiles of one head
 constexpr int THREADS = 128;
-constexpr int MAX_C = 1280;        // the out kernels' shared q tile
+constexpr int MAX_C = 1280;        // the out kernel's q / o tile: 64 rows above C 640
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -101,39 +146,6 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ldd,
       }
     }
     *reinterpret_cast<uint4*>(dst + r * ldd + cv) = val;
-  }
-}
-
-// W[k0:k0+64, n0:n0+64] of a row-major (kdim x ndim) bf16 matrix into a
-// [64 n][LDH] shared tile, transposed (the mma B operand wants k
-// contiguous); zero outside the matrix. ndim % 8 == 0.
-__device__ __forceinline__ void load_w_t(__nv_bfloat16* wts, const __nv_bfloat16* w,
-                                         int ldw, int k0, int kdim, int n0, int ndim) {
-  for (int i = threadIdx.x; i < 64 * 8; i += THREADS) {
-    const int r = i / 8, cv = (i % 8) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (k0 + r < kdim && n0 + cv < ndim)
-      raw = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ldw + n0 + cv);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wts[(cv + j) * LDH + r] = e[j];
-  }
-}
-
-// acc (this warp's 16 rows x 64 columns, fp32) += A (16 x 64, shared, row
-// stride lda, starting at the warp's first row) @ the tile in wts.
-__device__ __forceinline__ void mma_16x64(float (&acc)[NT][4], const __nv_bfloat16* a,
-                                          int lda, const __nv_bfloat16* wts) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    const __nv_bfloat16* ap = a + g * lda + kk + 2 * t;
-    const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * lda), ld32(ap + 8), ld32(ap + 8 * lda + 8)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* bp = wts + (n * 8 + g) * LDH + kk + 2 * t;
-      mma_bf16(acc[n], af, ld32(bp), ld32(bp + 8));
-    }
   }
 }
 
@@ -311,138 +323,571 @@ __global__ void __launch_bounds__(THREADS) attn_ones_kernel(
   }
 }
 
-// K10d (wq == NULL: qx is q, scaled here) and K10c's second launch (qx is
-// x, projected here by wq = Wq * scale). Grid (ceil(nq / 64), bsz); dynamic
-// shared memory: the q/o tile, then the K, V, A and W tiles.
-__global__ void __launch_bounds__(THREADS) attn_out_kernel(
-    const __nv_bfloat16* __restrict__ qx, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ wq,
-    const __nv_bfloat16* __restrict__ wo, const float* __restrict__ bo,
-    __nv_bfloat16* __restrict__ o, int nq, int nk, int c, int c_out, int heads,
-    float scale, int exact) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldq = c + AP;
-  __nv_bfloat16* qo = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qo + BQ * ldq;
-  __nv_bfloat16* vts = ks + BK * LDH;
-  __nv_bfloat16* at = vts + D * LDT;
-  __nv_bfloat16* wts = at + BQ * LDH;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const __nv_bfloat16* qxb = qx + ((size_t)b * nq + q0) * c;
-  float acc[NT][4];
+}  // namespace
 
-  if (wq == nullptr) {
-    for (int c0 = 0; c0 < c; c0 += D) load_rows(qo + c0, ldq, qxb + c0, c, nq - q0, scale);
+// ---- K10c / K10d: warp-specialised attention with the Wo epilogue ----------
+
+namespace {
+
+constexpr int KT = 64;                  // keys per tile
+constexpr int BOX = 64 * 128;           // 64 rows of one 64-column swizzled box: 8 KB
+constexpr int STAGE_BYTES = 2 * BOX;    // a K and a V tile, or two 64-column Wo boxes
+constexpr int MAX_STAGES = 8;
+constexpr int EPI_N = 128;              // output columns of one epilogue pass
+constexpr int SMEM_MAX = 232448;        // a block's shared memory on the H100 (opt-in)
+constexpr int SMEM_SLACK = 1024 + 512;  // 1024-byte alignment of the tiles, the barriers
+// q rows of a CTA: 192 (3 consumer warpgroups) up to C 448 where Nq is long
+// enough that the coarser last wave costs less than the third warpgroup
+// gains, else 128 (2) up to C 640, else 64 (1)
+constexpr int WIDEST_MAX_C = 448, WIDEST_MIN_NQ = 2048;
+constexpr int WIDE_MAX_C = 640;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU (ex2.approx: 2 ulp; 0 at -inf, +inf above 128).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A ring of stages in shared memory, each a K and a V slot with a full and
+// an empty barrier apiece (K is free once S is done, V once PV is), which
+// the producer and every consumer warpgroup walk in the same order. The
+// epilogue's Wo stages take both slots on the K barriers (and the V empty
+// one). Barriers: full K, full V, empty K, empty V, `stages` each.
+struct Ring {
+  uint32_t base, bars;
+  int stage, stages;
+  uint32_t phase;
+  __device__ __forceinline__ uint32_t slot() const { return base + stage * STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t bar(int kind, int s) const {
+    return bars + 8 * (kind * stages + s);
+  }
+  __device__ __forceinline__ uint32_t full_k(int s) const { return bar(0, s); }
+  __device__ __forceinline__ uint32_t full_v(int s) const { return bar(1, s); }
+  __device__ __forceinline__ uint32_t empty_k(int s) const { return bar(2, s); }
+  __device__ __forceinline__ uint32_t empty_v(int s) const { return bar(3, s); }
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// This warp's rows of q_h as wgmma A fragments (4 k16 slices of 4
+// registers), from the swizzled box `box` (the warpgroup's 64 rows), scaled
+// in fp32 and rounded to bf16 when scale != 1. r0 = 16 w + g.
+__device__ __forceinline__ void load_q(uint32_t (&qf)[4][4], uint32_t box, int r0, int t,
+                                       float scale) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t raw = lds32(box + swizzle128(r0 + 8 * (i & 1), 16 * kk + 8 * (i >> 1) + 2 * t));
+      if (scale != 1.f) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+        raw = pack_bf16(f.x * scale, f.y * scale);
+      }
+      qf[kk][i] = raw;
+    }
+}
+
+// s = q_h K^T for one 64-key tile: K K-major in its swizzled box.
+__device__ __forceinline__ void issue_s(float (&s)[32], const uint32_t (&qf)[4][4],
+                                        uint32_t kbox) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_m64n64k16<0>(s, qf[kk], smem_desc(kbox + kk * 32, 16, 1024), kk);
+  wgmma_commit();
+}
+
+// o (+)= P V for one 64-key tile: P from registers, V MN-major as it lies
+// in memory (keys x 64 values), so no thread moves an element of V; a
+// head's first tile overwrites o (accumulate 0).
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[4][4],
+                                         uint32_t vbox, int accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_m64n64k16<1>(o, p[kk], smem_desc(vbox + kk * 2048, 1024, 1024), accumulate | kk);
+  wgmma_commit();
+}
+
+// Softmax numerators of one tile in place, rows g and g + 8 of the warp's
+// 16: keys from `valid` on are masked; exact: exp(s - running max), alpha
+// the factor for the sums so far; otherwise raw exp(s). l = l alpha + the
+// fp32 row sums of the unrounded numerators (this thread's columns).
+__device__ __forceinline__ void numerators(float (&s)[32], float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2], int valid, int t, int exact) {
+  if (valid < KT) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
+      if (col + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+    }
+  }
+  float neg[2] = {0.f, 0.f};
+  alpha[0] = alpha[1] = 1.f;
+  if (exact) {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2((m[r] - mx[r]) * LOG2E);
+      m[r] = mx[r];
+      neg[r] = -mx[r] * LOG2E;
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], LOG2E, neg[e >> 1]));
+      sum[e >> 1] += s[4 * j + e];
+    }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// o_h / l, rounded to bf16, over this warp's rows of q_h in its swizzled box.
+__device__ __forceinline__ void store_head(const float (&o)[32], float (&l)[2], uint32_t box,
+                                           int r0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sts32(box + swizzle128(r0, 8 * j + 2 * t), pack_bf16(o[4 * j] / l[0], o[4 * j + 1] / l[0]));
+    sts32(box + swizzle128(r0 + 8, 8 * j + 2 * t),
+          pack_bf16(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]));
+  }
+}
+
+// The consumer's walk over the (head, key tile) sequence.
+struct AttnState {
+  Ring ring;                    // the stage of tile i
+  int i = 0, h = 0, kt = 0, prev = -1;
+  int nt, last_valid, head_bytes, r0, t, exact;
+  uint32_t slab;
+  float scale;
+  float l_done[2];              // l of the head whose o is stored at the next tile
+  bool signaller;
+};
+
+// Tile i begins with S_i done (in sc) and PV of tile i - 1 running: the
+// numerators; then, PV i - 1 done, the previous head's o / l over its q
+// where tile i starts a head, o rescaled, P packed. Accumulators are only
+// written here while no wgmma runs, so the compiler keeps them in flight.
+__device__ __forceinline__ void attn_begin(AttnState& st, float (&sc)[32], float (&o)[32],
+                                           uint32_t (&p)[4][4], float (&m)[2], float (&l)[2]) {
+  const bool head_end = st.kt == st.nt - 1;
+  float alpha[2];
+  numerators(sc, m, l, alpha, head_end ? st.last_valid : KT, st.t, st.exact);
+  wgmma_wait<0>();   // PV of tile i - 1
+  fence_operand(o);
+  fence_operand(p);
+  if (st.kt == 0 && st.i > 0)
+    store_head(o, st.l_done, st.slab + (st.h - 1) * st.head_bytes, st.r0, st.t);
+  if (st.signaller && st.prev >= 0) mbar_arrive(st.ring.empty_v(st.prev));
+  if (st.exact) {   // at a head's first tile alpha is 0 and PV overwrites o
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+  if (head_end) {
+    st.l_done[0] = l[0];
+    st.l_done[1] = l[1];
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+}
+
+// The rest of a tile that another follows: S of tile i + 1 (q of the next
+// head loaded first at a head's end), then PV of tile i; S i + 1 is waited
+// for, PV i runs on under the next tile's numerators.
+__device__ __forceinline__ void attn_next(AttnState& st, float (&sn)[32], float (&o)[32],
+                                          const uint32_t (&p)[4][4], uint32_t (&qf)[4][4]) {
+  const bool head_end = st.kt == st.nt - 1;
+  Ring nxt = st.ring;
+  nxt.advance();
+  if (head_end) load_q(qf, st.slab + (st.h + 1) * st.head_bytes, st.r0, st.t, st.scale);
+  mbar_wait(nxt.full_k(nxt.stage), nxt.phase);
+  mbar_wait(st.ring.full_v(st.ring.stage), st.ring.phase);
+  issue_s(sn, qf, nxt.slot());
+  issue_pv(o, p, st.ring.slot() + BOX, st.kt != 0);
+  wgmma_wait<1>();   // S of tile i + 1
+  fence_operand(sn);
+  fence_operand(qf);
+  if (st.signaller) mbar_arrive(nxt.empty_k(nxt.stage));
+  st.prev = st.ring.stage;
+  st.ring = nxt;
+  ++st.i;
+  if (head_end) {
+    ++st.h;
+    st.kt = 0;
   } else {
-    for (int n0 = 0; n0 < c; n0 += 64) {  // q = bf16(x Wq'), 64 columns at a time
+    ++st.kt;
+  }
+}
+
+// The last tile of the last head; leaves the ring at the epilogue's first
+// stage.
+__device__ __forceinline__ void attn_last(AttnState& st, float (&sc)[32], float (&o)[32],
+                                          uint32_t (&p)[4][4], float (&m)[2], float (&l)[2]) {
+  attn_begin(st, sc, o, p, m, l);
+  mbar_wait(st.ring.full_v(st.ring.stage), st.ring.phase);
+  issue_pv(o, p, st.ring.slot() + BOX, st.kt != 0);
+  wgmma_wait<0>();
+  fence_operand(o);
+  fence_operand(p);
+  store_head(o, st.l_done, st.slab + st.h * st.head_bytes, st.r0, st.t);
+  if (st.signaller) mbar_arrive(st.ring.empty_v(st.ring.stage));
+  st.ring.advance();
+}
+
+// K10d, and K10c's attention launch (q, k, v from its projection, scale
+// 1). One CTA per (BM = 64 NWG q rows, batch); warpgroup 0 the producer,
+// warpgroups 1..NWG the consumers, 64 rows each. Shared memory: the q / o
+// tile (heads boxes of BM x 64), the ring, the barriers.
+template <int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_out_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_wo,
+    const float* __restrict__ bo, __nv_bfloat16* __restrict__ out, int nq, int nk, int heads,
+    int c_out, int stages, float scale, int exact) {
+  constexpr int BM = 64 * NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qtile = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  Ring ring;
+  ring.base = qtile + heads * BM * 128;
+  ring.bars = ring.base + stages * STAGE_BYTES;
+  ring.stage = 0;
+  ring.stages = stages;
+  ring.phase = 0;
+  const uint32_t q_full = ring.bars + 4 * 8 * stages;
+  const int b = blockIdx.y, q0 = blockIdx.x * BM;
+  const int nt = (nk + KT - 1) / KT;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring.full_k(s), 1);
+      mbar_init(ring.full_v(s), 1);
+      mbar_init(ring.empty_k(s), NWG);
+      mbar_init(ring.empty_v(s), NWG);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (NWG == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, heads * BM * 128);
+      for (int h = 0; h < heads; ++h)
+        tma_load_3d(qtile + h * BM * 128, &tm_q, q_full, h * D, q0, b);
+      // K and V tiles, head after head: the ring runs on across heads
+      for (int h = 0; h < heads; ++h)
+        for (int kt = 0; kt < nt; ++kt) {
+          const int s = ring.stage;
+          mbar_wait(ring.empty_k(s), ring.phase ^ 1);
+          mbar_expect_tx(ring.full_k(s), BOX);
+          tma_load_3d(ring.slot(), &tm_k, ring.full_k(s), h * D, kt * KT, b);
+          mbar_wait(ring.empty_v(s), ring.phase ^ 1);
+          mbar_expect_tx(ring.full_v(s), BOX);
+          tma_load_3d(ring.slot() + BOX, &tm_v, ring.full_v(s), h * D, kt * KT, b);
+          ring.advance();
+        }
+      // then Wo, rows 64 hh.. of each EPI_N-column pass, one stage a head; a
+      // box wholly past C_out is not loaded (its columns are not stored)
+      for (int n0 = 0; n0 < c_out; n0 += EPI_N)
+        for (int hh = 0; hh < heads; ++hh) {
+          const bool two = n0 + 64 < c_out;
+          const int s = ring.stage;
+          mbar_wait(ring.empty_k(s), ring.phase ^ 1);
+          mbar_wait(ring.empty_v(s), ring.phase ^ 1);
+          mbar_expect_tx(ring.full_k(s), two ? 2 * BOX : BOX);
+          tma_load_3d(ring.slot(), &tm_wo, ring.full_k(s), n0, hh * D, 0);
+          if (two) tma_load_3d(ring.slot() + BOX, &tm_wo, ring.full_k(s), n0 + 64, hh * D, 0);
+          ring.advance();
+        }
+    }
+  } else {
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (NWG == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    const int ci = wg - 1, t128 = threadIdx.x % 128;
+    const int lane = t128 % 32, g = lane / 4, t = lane % 4, r0 = (t128 / 32) * 16 + g;
+    const uint32_t slab = qtile + ci * 64 * 128;   // this warpgroup's rows of head box 0
+
+    float s0[32], s1[32], o[32], m[2], l[2];   // o: written by a head's first PV
+    uint32_t qf[4][4], p[4][4];
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+
+    AttnState st;
+    mbar_wait(q_full, 0);
+    load_q(qf, slab, r0, t, scale);
+    mbar_wait(ring.full_k(0), 0);
+    issue_s(s0, qf, ring.slot());
+    wgmma_wait<0>();
+    fence_operand(s0);
+    fence_operand(qf);
+    if (t128 == 0) mbar_arrive(ring.empty_k(0));
+
+    st.ring = ring;
+    st.nt = nt;
+    st.last_valid = nk - (nt - 1) * KT;
+    st.slab = slab;
+    st.head_bytes = BM * 128;
+    st.r0 = r0;
+    st.t = t;
+    st.scale = scale;
+    st.exact = exact;
+    st.signaller = t128 == 0;
+    int steps = heads * nt - 1;   // tiles that another follows
+    for (; steps >= 2; steps -= 2) {
+      attn_begin(st, s0, o, p, m, l);
+      attn_next(st, s1, o, p, qf);
+      attn_begin(st, s1, o, p, m, l);
+      attn_next(st, s0, o, p, qf);
+    }
+    if (steps == 1) {
+      attn_begin(st, s0, o, p, m, l);
+      attn_next(st, s1, o, p, qf);
+      attn_last(st, s1, o, p, m, l);
+    } else {
+      attn_last(st, s0, o, p, m, l);
+    }
+    ring = st.ring;
+
+    // out = o (BM x C, heads boxes) @ Wo + bo: every o_h of this warpgroup's
+    // rows is in shared memory once its own threads' stores are visible to
+    // wgmma.
+    fence_proxy_async();
+    named_barrier_sync(1 + ci, 128);
+    const int row0 = q0 + ci * 64 + r0, row1 = row0 + 8;
+    __nv_bfloat16* ob = out + (size_t)b * nq * c_out;
+    for (int n0 = 0; n0 < c_out; n0 += EPI_N) {
+      float acc[64];
+      int pend = -1;
+      for (int hh = 0; hh < heads; ++hh) {
+        mbar_wait(ring.full_k(ring.stage), ring.phase);
+        const uint32_t a = slab + hh * BM * 128;
+        fence_operand(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-      for (int k0 = 0; k0 < c; k0 += 64) {
-        __syncthreads();
-        load_rows(at, LDH, qxb + k0, c, nq - q0, 1.f);
-        load_w_t(wts, wq, c, k0, c, n0, c);
-        __syncthreads();
-        mma_16x64(acc, at + wr * LDH, LDH, wts);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n128k16<1>(acc, smem_desc(a + kk * 32, 16, 1024),
+                                 smem_desc(ring.slot() + kk * 2048, BOX, 1024), hh | kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operand(acc);
+        if (t128 == 0 && pend >= 0) {
+          mbar_arrive(ring.empty_k(pend));
+          mbar_arrive(ring.empty_v(pend));
+        }
+        pend = ring.stage;
+        ring.advance();
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (t128 == 0) {
+        mbar_arrive(ring.empty_k(pend));
+        mbar_arrive(ring.empty_v(pend));
       }
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        __nv_bfloat16* dst = qo + (wr + g) * ldq + n0 + n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[n][0], acc[n][1]);
-        *reinterpret_cast<uint32_t*>(dst + 8 * ldq) = pack_bf16(acc[n][2], acc[n][3]);
+      for (int j = 0; j < EPI_N / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col >= c_out) continue;
+        const float b0 = bo[col], b1 = bo[col + 1];
+        if (row0 < nq)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * c_out + col) =
+              pack_bf16(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+        if (row1 < nq)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * c_out + col) =
+              pack_bf16(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
       }
-    }
-  }
-
-  for (int h = 0; h < heads; ++h) {
-    float l_run[2];
-    attend<NT>(acc, l_run, qo + h * D, ldq, ks, vts, k + (size_t)b * nk * c + h * D, c,
-               v + (size_t)b * nk * c + h * D, c, 0, nk, exact, 0.f);
-    __syncwarp();
-    // o_h, rounded to bf16, over q_h: the warp's own rows, read by no other warp
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      __nv_bfloat16* dst = qo + (wr + g) * ldq + h * D + n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[n][0] / l_run[0], acc[n][1] / l_run[0]);
-      *reinterpret_cast<uint32_t*>(dst + 8 * ldq) =
-          pack_bf16(acc[n][2] / l_run[1], acc[n][3] / l_run[1]);
-    }
-  }
-
-  // out = o (64 x c) @ Wo (c x c_out) + bo, 64 output columns at a time
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  __nv_bfloat16* ob = o + (size_t)b * nq * c_out;
-  for (int n0 = 0; n0 < c_out; n0 += 64) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int k0 = 0; k0 < c; k0 += 64) {
-      __syncthreads();
-      load_w_t(wts, wo, c_out, k0, c, n0, c_out);
-      __syncthreads();
-      mma_16x64(acc, qo + wr * ldq + k0, ldq, wts);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int cc = n0 + n * 8 + 2 * t;
-      if (cc >= c_out) continue;
-      const float b0 = bo[cc], b1 = bo[cc + 1];
-      if (r0 < nq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * c_out + cc) =
-            pack_bf16(acc[n][0] + b0, acc[n][1] + b1);
-      if (r1 < nq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * c_out + cc) =
-            pack_bf16(acc[n][2] + b0, acc[n][3] + b1);
     }
   }
 }
 
-// K10c's first launch: kout = bf16(x Wk), vout = bf16(x Wv) over m = B*N
-// rows (blockIdx.z picks the pair). Grid (c / 64, ceil(m / 64), 2).
-__global__ void __launch_bounds__(THREADS) kv_proj_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
-    const __nv_bfloat16* __restrict__ wv, __nv_bfloat16* __restrict__ kout,
-    __nv_bfloat16* __restrict__ vout, int m, int c) {
-  __shared__ __align__(16) __nv_bfloat16 at[BQ * LDH];
-  __shared__ __align__(16) __nv_bfloat16 wts[64 * LDH];
-  const __nv_bfloat16* w = blockIdx.z ? wv : wk;
-  __nv_bfloat16* out = blockIdx.z ? vout : kout;
-  const int r0 = blockIdx.y * BQ, n0 = blockIdx.x * 64;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int k0 = 0; k0 < c; k0 += 64) {
-    __syncthreads();
-    load_rows(at, LDH, x + (size_t)r0 * c + k0, c, m - r0, 1.f);
-    load_w_t(wts, w, c, k0, c, n0, c);
-    __syncthreads();
-    mma_16x64(acc, at + wr * LDH, LDH, wts);
+// K10c's first launch: y (m x 3c) = x (m x c) @ [Wq scale | Wk | Wv] (c x 3c),
+// fp32 sums rounded to bf16. Persistent: each CTA walks tiles of G_BM x
+// EPI_N (columns first, so the CTAs resident together share x's rows in
+// L2), and the loads of the next tile run under this tile's stores.
+// Warpgroup 0 the producer, 1 and 2 the consumers of 64 rows each; a stage
+// holds an x slice (K-major) and two 64-column boxes of the weight that
+// holds those columns (MN-major, as stored: c % 64 == 0, so no box spans
+// two weights). The output goes through shared memory and TMA stores, so
+// its writes are whole lines and the consumers go on to the next tile.
+constexpr int G_BM = 128, G_STAGES = 5;
+constexpr int G_A_BYTES = G_BM * 128;
+constexpr int G_STAGE = G_A_BYTES + 2 * BOX;
+constexpr int G_OUT = 2 * 2 * BOX;   // each consumer's 64 x 128 output tile
+constexpr int G_SMEM = 1024 + G_STAGES * G_STAGE + G_OUT + 2 * 8 * G_STAGES;
+
+__global__ void __launch_bounds__(384, 1) qkv_proj_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_wq,
+    const __grid_constant__ CUtensorMap tm_wk, const __grid_constant__ CUtensorMap tm_wv,
+    const __grid_constant__ CUtensorMap tm_y, int m, int c) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t out_tiles = base + G_STAGES * G_STAGE;
+  const uint32_t full = out_tiles + G_OUT, empty = full + 8 * G_STAGES;
+  const int n_cols = 3 * c, k_chunks = c / 64;
+  const int tiles_n = (n_cols + EPI_N - 1) / EPI_N;
+  const int tiles = (m + G_BM - 1) / G_BM * tiles_n;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    fence_barrier_init();
   }
-  const int ra = r0 + wr + g, rb = ra + 8;
+  __syncthreads();
+  int stage = 0;
+  uint32_t phase = 0;
+
+  if (wg == 0) {
+    if (threadIdx.x == 0) {
+      const CUtensorMap* w[3] = {&tm_wq, &tm_wk, &tm_wv};
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * G_BM, n0 = tile % tiles_n * EPI_N;
+        const bool two = n0 + 64 < n_cols;
+        for (int kc = 0; kc < k_chunks; ++kc) {
+          const uint32_t sb = base + stage * G_STAGE, bar = full + 8 * stage;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(bar, G_A_BYTES + (two ? 2 * BOX : BOX));
+          tma_load_3d(sb, &tm_x, bar, kc * 64, m0, 0);
+          for (int j = 0; j < (two ? 2 : 1); ++j) {
+            const int col = n0 + 64 * j, which = col / c;
+            tma_load_3d(sb + G_A_BYTES + j * BOX, w[which], bar, col - which * c, kc * 64, 0);
+          }
+          if (++stage == G_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    const int ci = wg - 1, t128 = threadIdx.x % 128, lane = t128 % 32, t = lane % 4;
+    const int r0 = (t128 / 32) * 16 + lane / 4;   // row in this warpgroup's 64
+    const uint32_t out_tile = out_tiles + ci * 2 * BOX;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * G_BM, n0 = tile % tiles_n * EPI_N;
+      float acc[64];
+      int pend = -1;
+      for (int kc = 0; kc < k_chunks; ++kc) {
+        const uint32_t sb = base + stage * G_STAGE;
+        mbar_wait(full + 8 * stage, phase);
+        fence_operand(acc);
+        wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int cc = n0 + n * 8 + 2 * t;
-    if (ra < m)
-      *reinterpret_cast<uint32_t*>(out + (size_t)ra * c + cc) = pack_bf16(acc[n][0], acc[n][1]);
-    if (rb < m)
-      *reinterpret_cast<uint32_t*>(out + (size_t)rb * c + cc) = pack_bf16(acc[n][2], acc[n][3]);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n128k16<1>(acc, smem_desc(sb + ci * 64 * 128 + kk * 32, 16, 1024),
+                                 smem_desc(sb + G_A_BYTES + kk * 2048, BOX, 1024), kc | kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operand(acc);
+        if (t128 == 0 && pend >= 0) mbar_arrive(empty + 8 * pend);
+        pend = stage;
+        if (++stage == G_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (t128 == 0) {
+        mbar_arrive(empty + 8 * pend);
+        tma_store_wait<0, true>();   // the last tile's stores have read out_tile
+      }
+      named_barrier_sync(1 + ci, 128);
+#pragma unroll
+      for (int j = 0; j < EPI_N / 8; ++j) {
+        const uint32_t box = out_tile + (j / 8) * BOX;
+        const int col = (8 * j) % 64 + 2 * t;
+        sts32(box + swizzle128(r0, col), pack_bf16(acc[4 * j], acc[4 * j + 1]));
+        sts32(box + swizzle128(r0 + 8, col), pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+      fence_proxy_async();
+      named_barrier_sync(1 + ci, 128);
+      if (t128 == 0) {
+        tma_store_3d(&tm_y, out_tile, n0, m0 + ci * 64, 0);
+        if (n0 + 64 < n_cols) tma_store_3d(&tm_y, out_tile + BOX, n0 + 64, m0 + ci * 64, 0);
+        tma_store_commit();
+      }
+    }
+    if (t128 == 0) tma_store_wait<0, false>();
   }
+}
+
+int out_tile_rows(int c, int nq) {
+  return c <= WIDEST_MAX_C && nq >= WIDEST_MIN_NQ ? 192 : c <= WIDE_MAX_C ? 128 : 64;
+}
+
+template <int NWG>
+cudaError_t launch_attn_out(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                            const CUtensorMap& tm_v, const CUtensorMap& tm_wo, const float* bo,
+                            __nv_bfloat16* o, int bsz, int nq, int nk, int heads, int c_out,
+                            float scale, int exact, cudaStream_t s, int* ctas) {
+  const int q_bytes = heads * 64 * NWG * 128;
+  const int fit = (SMEM_MAX - SMEM_SLACK - q_bytes) / STAGE_BYTES;
+  const int stages = fit < MAX_STAGES ? fit : MAX_STAGES;
+  if (stages < 3) return cudaErrorInvalidValue;   // a consumer holds 3 stages at once
+  const int smem = SMEM_SLACK + q_bytes + stages * STAGE_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(attn_out_kernel<NWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + 64 * NWG - 1) / (64 * NWG), bsz);
+  if (ctas) *ctas = (int)(grid.x * grid.y);
+  attn_out_kernel<NWG><<<grid, 128 * (NWG + 1), smem, s>>>(tm_q, tm_k, tm_v, tm_wo, bo, o, nq,
+                                                           nk, heads, c_out, stages, scale,
+                                                           exact);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// Every entry below writes the CTAs it launches to `ctas` (may be NULL).
 
 // q: (bsz, nq, c), k: (bsz, nk, c), v: (bsz, nk, v_cols), o: (bsz, nq, c);
 // bf16, contiguous. c = heads * 64; ones_mode 1 takes the augmented V
 // (v_cols = 2c), 2 plain V (v_cols = c). nq, nk >= 1.
 extern "C" int mdt_attn_ones(const void* q, const void* k, const void* v, void* o,
                              int bsz, int nq, int nk, int c, int heads, int v_cols,
-                             int ones_mode, float scale, int exact, void* stream) {
+                             int ones_mode, float scale, int exact, void* stream, int* ctas) {
   if (c != heads * D || nq < 1 || nk < 1 || (ones_mode != 1 && ones_mode != 2) ||
       v_cols != (ones_mode == 1 ? 2 * c : c))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((nq + BQ - 1) / BQ, heads, bsz);
+  if (ctas) *ctas = (int)(grid.x * grid.y * grid.z);
   attn_ones_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq, nk, c,
@@ -450,37 +895,56 @@ extern "C" int mdt_attn_ones(const void* q, const void* k, const void* v, void* 
   return (int)cudaGetLastError();
 }
 
-// qx: (bsz, nq, c) q (wq NULL) or x; k, v: (bsz, nk, c); wq: (c, c) or NULL;
-// wo: (c, c_out); all bf16, contiguous; bo: (c_out,) fp32; o: (bsz, nq,
-// c_out) bf16. c = heads * 64 <= 1280, c_out % 8 == 0.
-extern "C" int mdt_attn_out(const void* qx, const void* k, const void* v, const void* wq,
-                            const void* wo, const void* bo, void* o, int bsz, int nq,
-                            int nk, int c, int c_out, int heads, float scale, int exact,
-                            void* stream) {
-  if (c != heads * D || c > MAX_C || c_out < 8 || c_out % 8 || nq < 1 || nk < 1)
+// q: (bsz, nq, c), k, v: (bsz, nk, c), each row `ld` elements after the last
+// (c for separate tensors, 3c for K10c's projection); wo: (c, c_out); all
+// bf16, 16-byte aligned; bo: (c_out,) fp32; o: (bsz, nq, c_out) bf16.
+// c = heads * 64 <= 1280, c_out % 8 == 0, ld % 8 == 0.
+extern "C" int mdt_attn_out(const void* q, const void* k, const void* v, const void* wo,
+                            const void* bo, void* o, int bsz, int nq, int nk, int c, int c_out,
+                            int heads, int ld, float scale, int exact, void* stream,
+                            int* ctas) {
+  if (c != heads * D || c > MAX_C || c_out < 8 || c_out % 8 || nq < 1 || nk < 1 || ld < c ||
+      ld % 8)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(BQ * (c + AP) + BK * LDH + D * LDT + BQ * LDH + 64 * LDH) *
-                      sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nq + BQ - 1) / BQ, bsz);
-  attn_out_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qx), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(wq),
-      static_cast<const __nv_bfloat16*>(wo), static_cast<const float*>(bo),
-      static_cast<__nv_bfloat16*>(o), nq, nk, c, c_out, heads, scale, exact);
-  return (int)cudaGetLastError();
+  const int bm = out_tile_rows(c, nq);
+  CUtensorMap tm_q, tm_k, tm_v, tm_wo;
+  if (!make_map(&tm_q, q, bsz, nq, c, 64, bm, ld) || !make_map(&tm_k, k, bsz, nk, c, 64, KT, ld) ||
+      !make_map(&tm_v, v, bsz, nk, c, 64, KT, ld) || !make_map(&tm_wo, wo, 1, c, c_out, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  const float* bias = static_cast<const float*>(bo);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 192)
+    return (int)launch_attn_out<3>(tm_q, tm_k, tm_v, tm_wo, bias, out, bsz, nq, nk, heads, c_out,
+                                   scale, exact, s, ctas);
+  if (bm == 128)
+    return (int)launch_attn_out<2>(tm_q, tm_k, tm_v, tm_wo, bias, out, bsz, nq, nk, heads, c_out,
+                                   scale, exact, s, ctas);
+  return (int)launch_attn_out<1>(tm_q, tm_k, tm_v, tm_wo, bias, out, bsz, nq, nk, heads, c_out,
+                                 scale, exact, s, ctas);
 }
 
-// x: (m, c); wk, wv: (c, c); kout, vout: (m, c); bf16, contiguous; c % 64 == 0.
-extern "C" int mdt_kv_proj(const void* x, const void* wk, const void* wv, void* kout,
-                           void* vout, int m, int c, void* stream) {
-  if (c % 64 || m < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(c / 64, (m + BQ - 1) / BQ, 2);
-  kv_proj_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wk),
-      static_cast<const __nv_bfloat16*>(wv), static_cast<__nv_bfloat16*>(kout),
-      static_cast<__nv_bfloat16*>(vout), m, c);
+// x: (m, c); wq (already scaled), wk, wv: (c, c); y: (m, 3c) = x @ [wq | wk |
+// wv]; bf16, 16-byte aligned; c % 64 == 0.
+extern "C" int mdt_qkv_proj(const void* x, const void* wq, const void* wk, const void* wv,
+                            void* y, int m, int c, void* stream, int* ctas) {
+  if (c < 64 || c % 64 || m < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_x, tm_wq, tm_wk, tm_wv, tm_y;
+  if (!make_map(&tm_x, x, 1, m, c, 64, G_BM) || !make_map(&tm_wq, wq, 1, c, c, 64, 64) ||
+      !make_map(&tm_wk, wk, 1, c, c, 64, 64) || !make_map(&tm_wv, wv, 1, c, c, 64, 64) ||
+      !make_map(&tm_y, y, 1, m, 3 * c, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(qkv_proj_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = (long long)((m + G_BM - 1) / G_BM) * ((3 * c + EPI_N - 1) / EPI_N);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  if (ctas) *ctas = grid;
+  qkv_proj_kernel<<<grid, 384, G_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tm_x, tm_wq, tm_wk, tm_wv, tm_y, m, c);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// Shared pieces of the mma.sync kernels (winograd.cu, winograd43.cu,
-// conv3x3.cu): the bf16 m16n8k16 tensor-core product with fp32
-// accumulation, 32-bit shared-memory fragment loads, cp.async with zero fill,
-// and the batched GEMM both Winograd kernels run between their input and
-// output transforms.
+// Shared pieces of the mma.sync kernels (winograd43.cu, conv3x3.cu,
+// attn_diag.cu and attn_variants.cu's ones kernel): the bf16 m16n8k16
+// tensor-core product with fp32 accumulation, 32-bit shared-memory fragment
+// loads, cp.async with zero fill, and the batched GEMM the Winograd
+// F(4x4, 3x3) kernel runs between its input and output transforms. The
+// wgmma kernels' pieces are in hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

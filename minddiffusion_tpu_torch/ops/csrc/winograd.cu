@@ -90,10 +90,7 @@
 // counter), 64 HGMMA.64x64x16 lines in its SASS; wino_input_kernel 62
 // registers and 25600 bytes of shared memory, wino_gathered_input_kernel 80
 // registers, neither spilling.
-#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime's entry-point query
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA and its tensor maps, wgmma
 
 namespace {
 
@@ -243,140 +240,13 @@ __global__ void __launch_bounds__(IN_THREADS) wino_gathered_input_kernel(
   store_v(cb, vbuf + (size_t)p * cin + ch, (size_t)p_total * cin);
 }
 
-// ---- Hopper pieces: mbarriers, TMA, wgmma ----------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spin until the phase of `bar` with parity `parity` has completed. A wait
-// of more than ~2^35 clocks (over 10 s) can only be a fault: it traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long start = clock64();
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 35)) __trap();
-  } while (!done);
-}
-
-// A 3-d TMA box (coordinates innermost first) into shared memory, counted
-// on `bar` in bytes.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// The same box into the same shared-memory offset of every CTA in `mask`,
-// counted on the barrier at `bar`'s offset in each of them.
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1, int c2,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Arrive on the barrier at shared address `bar` of CTA `cta` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-               ::: "memory");
-}
+// ---- cluster release ------------------------------------------------------
 
 // A consumer warpgroup is done with a stage: tell the producer of every CTA
 // that writes into it (each multicasts its part of the V slice).
 __device__ __forceinline__ void release_stage(uint32_t empty_bar) {
 #pragma unroll
   for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(empty_bar, r);
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Tie the accumulator registers to this point of the program, so the
-// compiler moves no read or write of them across a wgmma fence or wait.
-__device__ __forceinline__ void fence_operand(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, K-major) B (16 x 64, MN-major), bf16;
-// scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---- the fused kernel ------------------------------------------------------
@@ -430,7 +300,7 @@ __device__ __forceinline__ void consume_ab(float (&cur)[32], float (&prev)[32],
       // groups 1024 B apart. U: MN-major, 16 channels = 16 rows of 128 B.
       // U's leading offset (the stride between 64-column swizzle atoms) is
       // unused at BN 64, so both offsets are the 8-row group's 1024 B.
-      wgmma_64x64x16(cur, smem_desc(a + kk * 32, 16, 1024),
+      wgmma_ss_m64n64k16<1>(cur, smem_desc(a + kk * 32, 16, 1024),
                      smem_desc(b + kk * 16 * 128, 1024, 1024), (kc | kk) != 0);
     wgmma_commit();
     fence_operand(cur);
@@ -490,7 +360,7 @@ __global__ void __launch_bounds__(THREADS, 1) wino_fused_kernel(
       mbar_init(ring.full + 8 * s, 1);
       mbar_init(ring.empty + 8 * s, 2 * CLUSTER);  // each consumer warpgroup of the cluster
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   cluster_sync();  // every barrier of the cluster is set up before any arrives
 
@@ -558,44 +428,6 @@ __global__ void __launch_bounds__(THREADS, 1) wino_fused_kernel(
 }
 
 // ---- host side -------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (planes, rows, cols) bf16 row-major array as a tensor map whose box is
-// box_cols (128 bytes, swizzled) x box_rows x 1 plane; out-of-range
-// elements read as zero.
-bool make_map(CUtensorMap* map, const void* base, long long planes, long long rows,
-              long long cols, int box_cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols * 2)};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
 
 // The 16 products and the output transform after an input transform filled
 // vbuf: y (bsz, h, w, cout) from P = bsz * (h/2) * (w/2) tiles.

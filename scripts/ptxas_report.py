@@ -1,6 +1,6 @@
 """Print ptxas's report (registers, shared memory, spills per kernel) for one
 of the port's CUDA sources, and count the tensor-core instructions in its
-SASS: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
+SASS, per kernel and in all: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
 
     python3 scripts/ptxas_report.py winograd [more names]
 
@@ -34,8 +34,24 @@ def report(name: str) -> None:
                               check=True).stdout
     print(f"== {name}.cu: ptxas -v")
     print("\n".join(lines))
+    for fn, (hgmma, hmma) in sass_counts(sass).items():
+        print(f"== {name}.cu: {fn}: SASS lines with HGMMA {hgmma}, HMMA {hmma}")
     counts = {op: sum(f" {op}" in ln for ln in sass.splitlines()) for op in ("HGMMA", "HMMA")}
     print(f"== {name}.cu: SASS lines with HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}")
+
+
+def sass_counts(sass: str) -> dict:
+    """{kernel (mangled name): (HGMMA lines, HMMA lines)} of cuobjdump -sass
+    output, each kernel's code starting at its "Function : " line."""
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += " HGMMA" in ln
+            counts[fn][1] += " HMMA" in ln
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 if __name__ == "__main__":

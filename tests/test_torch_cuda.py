@@ -556,8 +556,16 @@ def test_ones_fold_kernels_match_plain(cuda, variant, b, nq, nk, c, exact):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("b,nq,nk,c,c_out", [(2, 1024, 1024, 320, 320), (1, 300, 77, 640, 320),
-                                             (1, 200, 328, 128, 136), (2, 64, 64, 1280, 1280)])
+@pytest.mark.parametrize("b,nq,nk,c,c_out", [
+    (2, 1024, 1024, 320, 320), (1, 300, 77, 640, 320), (1, 200, 328, 128, 136),
+    (2, 64, 64, 1280, 1280),
+    # Nq filling no tile (192 q rows a CTA up to C 448 at Nq >= 2048, else 128
+    # up to C 640, else 64), Nk 1, 77 and Nq + 128 (keys past Nk are TMA's
+    # zero fill), C_out 8 and 136 (a partial last 128-column Wo pass)
+    (2, 1000, 1, 128, 8), (1, 65, 77, 128, 136), (2, 1000, 1128, 640, 136),
+    (1, 65, 193, 640, 640), (1, 1000, 77, 704, 8), (2, 65, 1, 704, 704),
+    (1, 1000, 1128, 1280, 136), (2, 65, 77, 1280, 1280), (1, 2100, 77, 320, 136),
+    (1, 2049, 2177, 448, 8)])
 def test_out_kernel_matches_plain(cuda, b, nq, nk, c, c_out, exact):
     g = torch.Generator(device=cuda).manual_seed(17)
     q, k, v = (torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
@@ -565,16 +573,23 @@ def test_out_kernel_matches_plain(cuda, b, nq, nk, c, c_out, exact):
     wo = torch.randn(c, c_out, generator=g, device=cuda) * c ** -0.5
     bo = 0.1 * torch.randn(c_out, generator=g, device=cuda)
     ref = attn_variants.attn_out_plain(q, k, v, wo, bo, 0.125, c // 64, exact)
+    before = attn_variants.flash_attention_packed_out.launches
     got = attn_variants.flash_attention_packed_out(q, k, v, wo, bo, 0.125, c // 64, exact)
     torch.cuda.synchronize()
+    assert attn_variants.flash_attention_packed_out.launches == before + 1
     assert _rel_err(got, ref) <= 2e-2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("b,n,c,block_q", [(2, 1024, 320, 256), (1, 256, 640, 256),
-                                           (2, 77, 128, 256)])
+                                           (2, 77, 128, 256),
+                                           # every tier of the attention launch
+                                           (1, 1000, 128, 1000), (2, 65, 640, 65),
+                                           (1, 65, 704, 65), (1, 1000, 1280, 1000),
+                                           (1, 2100, 320, 2100)])
 def test_proj_kernel_matches_plain(cuda, b, n, c, block_q, exact):
+    """K10c, and its projection launch alone against the rounded products."""
     g = torch.Generator(device=cuda).manual_seed(18)
     x = torch.randn(b, n, c, generator=g, device=cuda).to(torch.bfloat16)
     wq, wk, wv, wo = (torch.randn(c, c, generator=g, device=cuda) * c ** -0.5
@@ -582,9 +597,16 @@ def test_proj_kernel_matches_plain(cuda, b, n, c, block_q, exact):
     bo = 0.1 * torch.randn(c, generator=g, device=cuda)
     args = (x, wq, wk, wv, wo, bo, 0.125, c // 64)
     ref = attn_variants.attn_proj_plain(*args, exact)
+    before = attn_variants.flash_attention_packed_proj.launches
     got = attn_variants.flash_attention_packed_proj(*args, block_q=block_q, exact=exact)
     torch.cuda.synchronize()
+    assert attn_variants.flash_attention_packed_proj.launches == before + 1
     assert _rel_err(got, ref) <= 2e-2
+    y = attn_variants._proj_qkv(x, wq, wk, wv, 0.125)
+    wqs = (wq.float() * 0.125).to(torch.bfloat16)
+    y_ref = torch.cat([torch.matmul(x.float(), w.to(torch.bfloat16).float()).to(torch.bfloat16)
+                       for w in (wqs, wk, wv)], dim=-1)
+    assert _rel_err(y, y_ref) <= 2e-2
 
 
 @pytest.mark.cuda
