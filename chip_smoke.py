@@ -10,7 +10,12 @@ Phases (one line each; any failure raises and exits non-zero):
      modes and bf16s's packed-exp instantiation attn_diag.cu), one nvcc
      each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
-     shapes, beside F.scaled_dot_product_attention on the same tensors;
+     shapes and every head width (D 40, 64, 80, 160, 512), ragged Nq and
+     Nk, beside F.scaled_dot_product_attention on the same tensors (the
+     backend PyTorch took named) and K4 at D 512, with the CTAs and waves
+     of each launch; then `scripts/ptxas_report.py packed`, whose SASS
+     must show wgmma and no mma.sync, and ptxas no spills, in every K1
+     kernel;
   3. Winograd conv kernel (K2) vs its plain version at every (shape,
      prologue) of the main path's 21 launches an eval and a ragged case,
      beside cuDNN's F.conv2d, the bound and the TFLOP/s reached;
@@ -141,6 +146,7 @@ import json
 import math
 import os
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -304,12 +310,24 @@ GLIDE_ATTN_CASES = [  # (label, B, Nq, Nk, C, heads): exact, 128 text keys first
     ("glide_sr_ds8", 8, 1024, 1152, 384, 6),        # 32^2 of the 256 px super-res
     # the 16^2 tier that MDT_GLIDE_TUNE=attn_route=256 sends to K1
     ("glide_sr_ds16_attn_route_256", 8, 256, 384, 768, 12),
+    # ragged Nq and Nk (no path has them; the kernel takes any Nq, Nk >= 1)
+    ("ragged_nq1000_nk77", 2, 1000, 77, 320, 5),
+    ("ragged_d512_nq1000_nk77", 2, 1000, 77, 512, 1),
 ]
+# The kernels of packed_attention.cu, whose SASS must hold wgmma (HGMMA),
+# no mma.sync (HMMA) and whose ptxas report no spills
+K1_KERNELS = ("packed_attn_kernel", "packed_attn512_kernel")
 
 
 def phase2(gen: torch.Generator, table: dict) -> None:
+    """K1 against its plain version at every case, beside SDPA (the backend
+    PyTorch takes at each head width named), K4 on the same tensors at D 512
+    (the VAE mid's other kernel), the bound, and the CTAs and waves (one CTA
+    an SM) as the C entry reports them; then the SASS and spills of its
+    kernels."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = ([(label, b, n, n, c, heads, exact, qmul)
               for label, b, n, c, heads, exact, qmul in ATTN_CASES]
              + [(label, b, nq, nk, c, heads, True, 1.0)
@@ -320,8 +338,11 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         q = (q.float() * qmul).to(torch.bfloat16)
         scale = (c // heads) ** -0.5
         ref = fa.packed_attention_plain(q, k, v, heads, scale, exact)
+        fa.last_ctas.clear()
         got = fa.flash_attention_packed(q, k, v, heads, scale, exact)
         torch.cuda.synchronize()
+        ctas = fa.last_ctas["mdt_packed_attention"]
+        rows, key_tile, stages, groups = fa.packed_plan(n, c, heads, b, sms)
         max_logit = None
         if qmul != 1.0:
             d = c // heads
@@ -337,17 +358,25 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         d = c // heads
         heads_view = [t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
+        k4_ms = None
+        if d == 512:   # the VAE mid's yardstick: K4 on (B, N, H, D) views, no copy
+            split = [t.view(b, -1, heads, d) for t in (q, k, v)]
+            k4_ms = cuda_ms(lambda: fa.flash_attention(*split, scale, exact))
         bound_ms, bound_by, term = attention_bound(b, heads, n, nk, d)
         log(f"[phase 2] attn {label} B={b} Nq={n} Nk={nk} C={c} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
-            f"bound_ms={bound_ms:.4f} ({term})"
+            + (f"k4_ms={k4_ms:.4f} " if k4_ms is not None else "")
+            + f"bound_ms={bound_ms:.4f} ({term}) rows={rows} key_tile={key_tile} "
+            f"stages={stages} groups={groups} ctas={ctas} waves={ctas / sms:.2f}"
             + (f" max_logit={max_logit:.1f}" if max_logit else ""))
         assert err <= REL_TOL, (label, err)
         table["packed_attention"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, bound_term=term))
+                 bound_by=bound_by, bound_term=term, sdpa_backend=backend, k4_ms=k4_ms,
+                 ctas=ctas, waves=ctas / sms))
+    hold_wgmma_sass("packed_attention", K1_KERNELS, "phase 2", spills=True)
 
 
 # Every (shape, prologue) of the 21 K2 launches of an SD2 UNet eval at
@@ -2284,8 +2313,8 @@ def phase27(gen: torch.Generator, table: dict) -> None:
     Nk 77 and Nk = Nq + 128, C_out != C, K10d at C 1280, both softmax
     modes; beside SDPA (K10a, K10b, K11), the unfused chain (K10c: three
     input projections + SDPA + the output projection; K10d: SDPA + the
-    output projection) and K1 at the same shape where K1 takes it (Nk % 64
-    == 0); then the SASS check of the K10c / K10d kernels. No path of
+    output projection) and K1 at the same shape where K1 takes it; then the
+    SASS check of the K10c / K10d kernels. No path of
     either package launches them."""
     from minddiffusion_tpu_torch.ops import attn_variants as av, flash_attention as fa
 
@@ -2348,7 +2377,7 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         q, k, v = (randn(b, n, c).to(torch.bfloat16) for n in (nq, nk, nk))
         attn = sdpa(q, k, v, heads, scale)
         k1 = ((lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
-              if nk % 64 == 0 else None)
+              if fa.kernel_supports(q, k, heads) else None)
         att = variant_bound(b, nq, nk, c)
         if not c_out:
             for name, fn in (("attn_ones", av.flash_attention_packed_ones),
@@ -2410,27 +2439,29 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                                             exact),
                  sdpa(q, k, v, heads, scale),
                  (lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
-                 if nk % 64 == 0 else None,
+                 if fa.kernel_supports(q, k, heads) else None,
                  variant_bound(b, nq, nk, c))
         del q, k, v
         torch.cuda.empty_cache()
-    hold_wgmma_sass()
+    hold_wgmma_sass("attn_variants", WGMMA_KERNELS, "phase 27")
 
 
-def hold_wgmma_sass() -> None:
-    """ptxas -v of attn_variants.cu (registers, spills) and the tensor-core
-    lines in the SASS of each kernel: the out and projection kernels run
-    wgmma (HGMMA) and no mma.sync (HMMA)."""
+def hold_wgmma_sass(source: str, kernels, phase: str, spills: bool = False) -> None:
+    """ptxas -v of csrc/<source>.cu (registers, spills) and the tensor-core
+    lines in the SASS of each kernel: every instantiation of `kernels` runs
+    wgmma (HGMMA) and no mma.sync (HMMA), and with `spills` none spills."""
     report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
-                                      "ptxas_report.py"), "attn_variants"])
+                                      "ptxas_report.py"), source])
     for line in report.splitlines():
-        log(f"[phase 27] {line}")
-    for kname in WGMMA_KERNELS:
+        log(f"[{phase}] {line}")
+    for kname in kernels:
         rows = [ln for ln in report.splitlines() if kname in ln and "SASS lines" in ln]
         assert rows, (kname, "not in the SASS")
         for ln in rows:
-            hgmma, hmma = (int(x) for x in ln.rsplit("HGMMA ", 1)[1].split(", HMMA "))
+            hgmma, hmma = (int(x) for x in re.search(r"HGMMA (\d+), HMMA (\d+)", ln).groups())
             assert hgmma > 0 and hmma == 0, ln
+            if spills:
+                assert re.search(r"spills 0$", ln), ln
 
 
 

@@ -40,7 +40,8 @@
 // rescale. l is the sum of the rounded P, as on the TPU.
 //
 // The out kernel (attn_out_kernel) and the projection (qkv_proj_kernel) are
-// Hopper designs: TMA into 128-byte swizzled tiles, full / empty mbarriers,
+// Hopper designs, the out kernel's attention being the core it shares with
+// K1 (attn_core.cuh): TMA into 128-byte swizzled tiles, full / empty mbarriers,
 // warpgroup 0 the producer (one thread issues every load), the other
 // warpgroups wgmma consumers; no mma.sync, and no thread moves an element
 // of K, V or a weight.
@@ -105,7 +106,7 @@
 // flop/byte ridge; the tensor cores and one fp32 exp per score set the
 // floor (ds1: 0.347 ms of products, 0.321 ms of exps), and the projections
 // add 2 N C C_out (K10d) or 8 N C^2 (K10c) flops.
-#include "hopper.cuh"
+#include "attn_core.cuh"
 #include "mma.cuh"
 
 #include <math.h>
@@ -122,11 +123,6 @@ constexpr int LDT = BK + AP;       // a row of a transposed V tile
 constexpr int NT = D / 8;          // 8-column output tiles of one head
 constexpr int THREADS = 128;
 constexpr int MAX_C = 1280;        // the out kernel's q / o tile: 64 rows above C 640
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 64 rows x 64 columns of a bf16 row-major matrix into a [64][LDH] shared
 // tile, the fp32 `scale` applied and the result rounded to bf16 when
@@ -334,239 +330,14 @@ constexpr int BOX = 64 * 128;           // 64 rows of one 64-column swizzled box
 constexpr int STAGE_BYTES = 2 * BOX;    // a K and a V tile, or two 64-column Wo boxes
 constexpr int MAX_STAGES = 8;
 constexpr int EPI_N = 128;              // output columns of one epilogue pass
-constexpr int SMEM_MAX = 232448;        // a block's shared memory on the H100 (opt-in)
-constexpr int SMEM_SLACK = 1024 + 512;  // 1024-byte alignment of the tiles, the barriers
 // q rows of a CTA: 192 (3 consumer warpgroups) up to C 448 where Nq is long
 // enough that the coarser last wave costs less than the third warpgroup
 // gains, else 128 (2) up to C 640, else 64 (1)
 constexpr int WIDEST_MAX_C = 448, WIDEST_MIN_NQ = 2048;
 constexpr int WIDE_MAX_C = 640;
-constexpr float LOG2E = 1.4426950408889634f;
 
-// 2^x on the SFU (ex2.approx: 2 ulp; 0 at -inf, +inf above 128).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A ring of stages in shared memory, each a K and a V slot with a full and
-// an empty barrier apiece (K is free once S is done, V once PV is), which
-// the producer and every consumer warpgroup walk in the same order. The
-// epilogue's Wo stages take both slots on the K barriers (and the V empty
-// one). Barriers: full K, full V, empty K, empty V, `stages` each.
-struct Ring {
-  uint32_t base, bars;
-  int stage, stages;
-  uint32_t phase;
-  __device__ __forceinline__ uint32_t slot() const { return base + stage * STAGE_BYTES; }
-  __device__ __forceinline__ uint32_t bar(int kind, int s) const {
-    return bars + 8 * (kind * stages + s);
-  }
-  __device__ __forceinline__ uint32_t full_k(int s) const { return bar(0, s); }
-  __device__ __forceinline__ uint32_t full_v(int s) const { return bar(1, s); }
-  __device__ __forceinline__ uint32_t empty_k(int s) const { return bar(2, s); }
-  __device__ __forceinline__ uint32_t empty_v(int s) const { return bar(3, s); }
-  __device__ __forceinline__ void advance() {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// This warp's rows of q_h as wgmma A fragments (4 k16 slices of 4
-// registers), from the swizzled box `box` (the warpgroup's 64 rows), scaled
-// in fp32 and rounded to bf16 when scale != 1. r0 = 16 w + g.
-__device__ __forceinline__ void load_q(uint32_t (&qf)[4][4], uint32_t box, int r0, int t,
-                                       float scale) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t raw = lds32(box + swizzle128(r0 + 8 * (i & 1), 16 * kk + 8 * (i >> 1) + 2 * t));
-      if (scale != 1.f) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-        raw = pack_bf16(f.x * scale, f.y * scale);
-      }
-      qf[kk][i] = raw;
-    }
-}
-
-// s = q_h K^T for one 64-key tile: K K-major in its swizzled box.
-__device__ __forceinline__ void issue_s(float (&s)[32], const uint32_t (&qf)[4][4],
-                                        uint32_t kbox) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_m64n64k16<0>(s, qf[kk], smem_desc(kbox + kk * 32, 16, 1024), kk);
-  wgmma_commit();
-}
-
-// o (+)= P V for one 64-key tile: P from registers, V MN-major as it lies
-// in memory (keys x 64 values), so no thread moves an element of V; a
-// head's first tile overwrites o (accumulate 0).
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[4][4],
-                                         uint32_t vbox, int accumulate) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_m64n64k16<1>(o, p[kk], smem_desc(vbox + kk * 2048, 1024, 1024), accumulate | kk);
-  wgmma_commit();
-}
-
-// Softmax numerators of one tile in place, rows g and g + 8 of the warp's
-// 16: keys from `valid` on are masked; exact: exp(s - running max), alpha
-// the factor for the sums so far; otherwise raw exp(s). l = l alpha + the
-// fp32 row sums of the unrounded numerators (this thread's columns).
-__device__ __forceinline__ void numerators(float (&s)[32], float (&m)[2], float (&l)[2],
-                                           float (&alpha)[2], int valid, int t, int exact) {
-  if (valid < KT) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col >= valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
-      if (col + 1 >= valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
-    }
-  }
-  float neg[2] = {0.f, 0.f};
-  alpha[0] = alpha[1] = 1.f;
-  if (exact) {
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = ex2((m[r] - mx[r]) * LOG2E);
-      m[r] = mx[r];
-      neg[r] = -mx[r] * LOG2E;
-    }
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = ex2(fmaf(s[4 * j + e], LOG2E, neg[e >> 1]));
-      sum[e >> 1] += s[4 * j + e];
-    }
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
-// o_h / l, rounded to bf16, over this warp's rows of q_h in its swizzled box.
-__device__ __forceinline__ void store_head(const float (&o)[32], float (&l)[2], uint32_t box,
-                                           int r0, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sts32(box + swizzle128(r0, 8 * j + 2 * t), pack_bf16(o[4 * j] / l[0], o[4 * j + 1] / l[0]));
-    sts32(box + swizzle128(r0 + 8, 8 * j + 2 * t),
-          pack_bf16(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]));
-  }
-}
-
-// The consumer's walk over the (head, key tile) sequence.
-struct AttnState {
-  Ring ring;                    // the stage of tile i
-  int i = 0, h = 0, kt = 0, prev = -1;
-  int nt, last_valid, head_bytes, r0, t, exact;
-  uint32_t slab;
-  float scale;
-  float l_done[2];              // l of the head whose o is stored at the next tile
-  bool signaller;
-};
-
-// Tile i begins with S_i done (in sc) and PV of tile i - 1 running: the
-// numerators; then, PV i - 1 done, the previous head's o / l over its q
-// where tile i starts a head, o rescaled, P packed. Accumulators are only
-// written here while no wgmma runs, so the compiler keeps them in flight.
-__device__ __forceinline__ void attn_begin(AttnState& st, float (&sc)[32], float (&o)[32],
-                                           uint32_t (&p)[4][4], float (&m)[2], float (&l)[2]) {
-  const bool head_end = st.kt == st.nt - 1;
-  float alpha[2];
-  numerators(sc, m, l, alpha, head_end ? st.last_valid : KT, st.t, st.exact);
-  wgmma_wait<0>();   // PV of tile i - 1
-  fence_operand(o);
-  fence_operand(p);
-  if (st.kt == 0 && st.i > 0)
-    store_head(o, st.l_done, st.slab + (st.h - 1) * st.head_bytes, st.r0, st.t);
-  if (st.signaller && st.prev >= 0) mbar_arrive(st.ring.empty_v(st.prev));
-  if (st.exact) {   // at a head's first tile alpha is 0 and PV overwrites o
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[4 * j] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-  if (head_end) {
-    st.l_done[0] = l[0];
-    st.l_done[1] = l[1];
-    m[0] = m[1] = -INFINITY;
-    l[0] = l[1] = 0.f;
-  }
-}
-
-// The rest of a tile that another follows: S of tile i + 1 (q of the next
-// head loaded first at a head's end), then PV of tile i; S i + 1 is waited
-// for, PV i runs on under the next tile's numerators.
-__device__ __forceinline__ void attn_next(AttnState& st, float (&sn)[32], float (&o)[32],
-                                          const uint32_t (&p)[4][4], uint32_t (&qf)[4][4]) {
-  const bool head_end = st.kt == st.nt - 1;
-  Ring nxt = st.ring;
-  nxt.advance();
-  if (head_end) load_q(qf, st.slab + (st.h + 1) * st.head_bytes, st.r0, st.t, st.scale);
-  mbar_wait(nxt.full_k(nxt.stage), nxt.phase);
-  mbar_wait(st.ring.full_v(st.ring.stage), st.ring.phase);
-  issue_s(sn, qf, nxt.slot());
-  issue_pv(o, p, st.ring.slot() + BOX, st.kt != 0);
-  wgmma_wait<1>();   // S of tile i + 1
-  fence_operand(sn);
-  fence_operand(qf);
-  if (st.signaller) mbar_arrive(nxt.empty_k(nxt.stage));
-  st.prev = st.ring.stage;
-  st.ring = nxt;
-  ++st.i;
-  if (head_end) {
-    ++st.h;
-    st.kt = 0;
-  } else {
-    ++st.kt;
-  }
-}
-
-// The last tile of the last head; leaves the ring at the epilogue's first
-// stage.
-__device__ __forceinline__ void attn_last(AttnState& st, float (&sc)[32], float (&o)[32],
-                                          uint32_t (&p)[4][4], float (&m)[2], float (&l)[2]) {
-  attn_begin(st, sc, o, p, m, l);
-  mbar_wait(st.ring.full_v(st.ring.stage), st.ring.phase);
-  issue_pv(o, p, st.ring.slot() + BOX, st.kt != 0);
-  wgmma_wait<0>();
-  fence_operand(o);
-  fence_operand(p);
-  store_head(o, st.l_done, st.slab + st.h * st.head_bytes, st.r0, st.t);
-  if (st.signaller) mbar_arrive(st.ring.empty_v(st.ring.stage));
-  st.ring.advance();
-}
+using Head64 = Head<D, KT>;   // K10d's head in the attention core (attn_core.cuh)
+static_assert(Head64::STAGE == STAGE_BYTES, "a K and a V box a stage");
 
 // K10d, and K10c's attention launch (q, k, v from its projection, scale
 // 1). One CTA per (BM = 64 NWG q rows, batch); warpgroup 0 the producer,
@@ -581,23 +352,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_out_kernel(
   constexpr int BM = 64 * NWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qtile = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  Ring ring;
-  ring.base = qtile + heads * BM * 128;
-  ring.bars = ring.base + stages * STAGE_BYTES;
-  ring.stage = 0;
-  ring.stages = stages;
-  ring.phase = 0;
+  Ring<STAGE_BYTES> ring;
+  ring.init(qtile + heads * BM * 128, stages);
   const uint32_t q_full = ring.bars + 4 * 8 * stages;
   const int b = blockIdx.y, q0 = blockIdx.x * BM;
   const int nt = (nk + KT - 1) / KT;
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(ring.full_k(s), 1);
-      mbar_init(ring.full_v(s), 1);
-      mbar_init(ring.empty_k(s), NWG);
-      mbar_init(ring.empty_v(s), NWG);
-    }
+    ring.init_barriers(NWG);
     mbar_init(q_full, 1);
     fence_barrier_init();
   }
@@ -611,17 +373,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_out_kernel(
       for (int h = 0; h < heads; ++h)
         tma_load_3d(qtile + h * BM * 128, &tm_q, q_full, h * D, q0, b);
       // K and V tiles, head after head: the ring runs on across heads
-      for (int h = 0; h < heads; ++h)
-        for (int kt = 0; kt < nt; ++kt) {
-          const int s = ring.stage;
-          mbar_wait(ring.empty_k(s), ring.phase ^ 1);
-          mbar_expect_tx(ring.full_k(s), BOX);
-          tma_load_3d(ring.slot(), &tm_k, ring.full_k(s), h * D, kt * KT, b);
-          mbar_wait(ring.empty_v(s), ring.phase ^ 1);
-          mbar_expect_tx(ring.full_v(s), BOX);
-          tma_load_3d(ring.slot() + BOX, &tm_v, ring.full_v(s), h * D, kt * KT, b);
-          ring.advance();
-        }
+      ring = load_heads<Head64>(ring, &tm_k, &tm_v, 0, heads, nt, b);
       // then Wo, rows 64 hh.. of each EPI_N-column pass, one stage a head; a
       // box wholly past C_out is not loaded (its columns are not stored)
       for (int n0 = 0; n0 < c_out; n0 += EPI_N)
@@ -642,47 +394,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_out_kernel(
     const int ci = wg - 1, t128 = threadIdx.x % 128;
     const int lane = t128 % 32, g = lane / 4, t = lane % 4, r0 = (t128 / 32) * 16 + g;
     const uint32_t slab = qtile + ci * 64 * 128;   // this warpgroup's rows of head box 0
-
-    float s0[32], s1[32], o[32], m[2], l[2];   // o: written by a head's first PV
-    uint32_t qf[4][4], p[4][4];
-    m[0] = m[1] = -INFINITY;
-    l[0] = l[1] = 0.f;
-
-    AttnState st;
-    mbar_wait(q_full, 0);
-    load_q(qf, slab, r0, t, scale);
-    mbar_wait(ring.full_k(0), 0);
-    issue_s(s0, qf, ring.slot());
-    wgmma_wait<0>();
-    fence_operand(s0);
-    fence_operand(qf);
-    if (t128 == 0) mbar_arrive(ring.empty_k(0));
-
-    st.ring = ring;
-    st.nt = nt;
-    st.last_valid = nk - (nt - 1) * KT;
-    st.slab = slab;
-    st.head_bytes = BM * 128;
-    st.r0 = r0;
-    st.t = t;
-    st.scale = scale;
-    st.exact = exact;
-    st.signaller = t128 == 0;
-    int steps = heads * nt - 1;   // tiles that another follows
-    for (; steps >= 2; steps -= 2) {
-      attn_begin(st, s0, o, p, m, l);
-      attn_next(st, s1, o, p, qf);
-      attn_begin(st, s1, o, p, m, l);
-      attn_next(st, s0, o, p, qf);
-    }
-    if (steps == 1) {
-      attn_begin(st, s0, o, p, m, l);
-      attn_next(st, s1, o, p, qf);
-      attn_last(st, s1, o, p, m, l);
-    } else {
-      attn_last(st, s0, o, p, m, l);
-    }
-    ring = st.ring;
+    ring = attend_heads<Head64>(ring, q_full, slab, BM * 128, heads, nk, r0, t, t128, scale,
+                                exact);
 
     // out = o (BM x C, heads boxes) @ Wo + bo: every o_h of this warpgroup's
     // rows is in shared memory once its own threads' stores are visible to

@@ -3,7 +3,9 @@
 Ports of minddiffusion_tpu/ops/flash_attention.py:
   * `flash_attention_packed` (`_packed_kernel`, K1): softmax(scale * Q K^T) V
     on packed (B, N, C = heads * D) tensors, head h being the column slice
-    [h*D, (h+1)*D). CUDA source csrc/packed_attention.cu.
+    [h*D, (h+1)*D), any Nq, Nk >= 1. CUDA source csrc/packed_attention.cu
+    (the attention core csrc/attn_core.cuh at D 40 / 64 / 80 / 160, its own
+    kernel at D 512 with one head), launched as `packed_plan` says.
   * `flash_attention` (`_flash_bhnd` / `_attn_kernel`, K4): the same on
     head-split (B, N, H, D) tensors with any Nq, Nk, in exact (online max)
     or static-shift (exp(s - 20)) softmax. CUDA source
@@ -20,18 +22,23 @@ and none is launched in the backward pass.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from minddiffusion_tpu_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)   # SD1 8-head widths, SD2, the VAE
-KEY_BLOCK = 64
+# K1's shared memory on the H100: a block's opt-in maximum, the alignment
+# and barrier slack, at most 8 ring stages (csrc/attn_core.cuh)
+SMEM_MAX, SMEM_SLACK, MAX_STAGES = 232448, 1024 + 512, 8
+H100_SMS = 132
 
-_SIGNATURES = {
+_SIGNATURES = {   # ends with the stream and an int* that receives the CTAs launched
     "mdt_packed_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
 }
+last_ctas: dict = {}   # CTAs of the last K1 launch, as its C entry reports them
 _FLASH_SIGNATURES = {
     "mdt_flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -69,11 +76,73 @@ def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def ring_stages(c: int, d: int, rows: int, key_tile: int) -> int:
+    """K / V stages of the attention core's ring (ceil(DK / 64) + ceil(D / 64)
+    64-column boxes of a key tile each, DK = D rounded up to 16) that fit
+    beside a rows x C q / o tile, at most 8; under 2, the CTA does not fit."""
+    dk = -(-d // 16) * 16
+    stage = (-(-dk // 64) + -(-d // 64)) * key_tile * 128
+    return min(MAX_STAGES, (SMEM_MAX - SMEM_SLACK - -(-c // 64) * rows * 128) // stage)
+
+
+def _tile_plan(nq: int, c: int, d: int) -> "tuple[int, int, int]":
+    """(rows, keys a tile, stages) of the attention core's CTA over C columns
+    at head dim d."""
+    if d == 64 and c <= 448 and nq >= 2048:
+        rows = 192
+    elif d in (40, 64, 80) and c <= 640:
+        rows = 128
+    else:
+        rows = 64
+    key_tile = 32 if d == 160 else 64
+    return rows, key_tile, ring_stages(c, d, rows, key_tile)
+
+
+@functools.lru_cache(maxsize=None)
+def packed_plan(nq: int, c: int, heads: int, batch: int = 1,
+                sms: int = H100_SMS) -> "tuple[int, int, int, int] | None":
+    """(q rows of a CTA, keys of a tile, ring stages, head groups) of K1's
+    launch at (B, Nq, C, heads) on a card of `sms` SMs, or None where the
+    kernel takes no such shape.
+
+    D 512 runs its own kernel, one head only: 64 rows, 64 keys, one stage.
+    Else the attention core (csrc/attn_core.cuh) holds a q / o tile of
+    rows x C' (C' = C / groups) and a ring of K / V stages (`ring_stages`):
+    192 rows at D 64 up to C' 448 where Nq >= 2048, 128 at D 40 / 64 / 80
+    up to C' 640, else 64; 32-key tiles at D 160, 64 else; at least 2
+    stages. Groups: the fewest that give
+    at least three quarters of a CTA an SM, among the splits of the heads
+    whose C' is whole 64-column boxes (else the most such)."""
+    if heads < 1 or c % heads or nq < 1 or batch < 1:
+        return None
+    d = c // heads
+    if d not in KERNEL_HEAD_DIMS:
+        return None
+    if d == 512:
+        return (64, 64, 1, 1) if heads == 1 else None
+    plan = None
+    for groups in range(1, heads + 1):
+        if heads % groups or (groups > 1 and (c // groups) % 64):
+            continue
+        rows, key_tile, stages = _tile_plan(nq, c // groups, d)
+        if stages < 2:
+            continue
+        plan = (rows, key_tile, stages, groups)
+        if batch * -(-nq // rows) * groups * 4 >= 3 * sms:
+            break
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: "int | None") -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def kernel_supports(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
-    """Shapes and dtype the CUDA kernel takes."""
-    c = q.shape[-1]
-    return (q.dtype == torch.bfloat16 and c % heads == 0
-            and c // heads in KERNEL_HEAD_DIMS and k.shape[1] % KEY_BLOCK == 0)
+    """Shapes and dtype the CUDA kernel takes: any Nq, Nk >= 1 (keys and
+    rows past the ends are TMA's zero fill) where `packed_plan` has a plan."""
+    return (q.dtype == torch.bfloat16 and k.shape[1] >= 1
+            and packed_plan(q.shape[1], q.shape[-1], heads, q.shape[0]) is not None)
 
 
 def _einsum_vjp(q, k, v, g, scale: float, heads: int = 0):
@@ -128,21 +197,26 @@ def _packed_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {shape}, got "
-                             f"{tuple(t.shape)}")
-    if not kernel_supports(q, k, heads):
-        raise ValueError(f"kernel takes head dim in {KERNEL_HEAD_DIMS} and "
-                         f"Nk % {KEY_BLOCK} == 0; got C={c}, heads={heads}, "
+        if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned {shape}, "
+                             f"got {tuple(t.shape)}")
+    plan = packed_plan(nq, c, heads, b, _sms(q.device.index))
+    if plan is None or nk < 1:
+        raise ValueError(f"kernel takes head dim in {KERNEL_HEAD_DIMS} (D 512 "
+                         f"with one head) and Nk >= 1; got C={c}, heads={heads}, "
                          f"Nk={nk}")
+    rows, key_tile, stages, groups = plan
     out = torch.empty_like(q)
     lib = _build.load("packed_attention", _SIGNATURES)
+    ctas = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mdt_packed_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
-            nk, c, heads, float(scale), int(exact), stream)
+            nk, c, heads, float(scale), int(exact), rows, key_tile, stages,
+            groups, stream, ctypes.byref(ctas))
     _build.check(err, "packed_attention launch")
+    last_ctas["mdt_packed_attention"] = ctas.value
     flash_attention_packed.launches += 1
     return out
 

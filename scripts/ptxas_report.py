@@ -4,13 +4,17 @@ SASS, per kernel and in all: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
 
     python3 scripts/ptxas_report.py winograd [more names]
 
-Compiles minddiffusion_tpu_torch/ops/csrc/<name>.cu with the flags of
-`ops/_build.py` plus `-Xptxas -v` into a temporary directory; needs the CUDA
-toolkit (nvcc, cuobjdump), no card.
+A name is csrc/<name>.cu's, or `packed` for K1's packed_attention.cu. Each
+kernel's line reads "SASS lines with HGMMA n, HMMA m; registers r, spills
+s" (s: the bytes of its spill stores and loads). Compiles
+minddiffusion_tpu_torch/ops/csrc/<name>.cu with the flags of `ops/_build.py`
+plus `-Xptxas -v` into a temporary directory; needs the CUDA toolkit (nvcc,
+cuobjdump), no card.
 """
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -21,7 +25,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from minddiffusion_tpu_torch.ops import _build  # noqa: E402
 
 
+ALIASES = {"packed": "packed_attention"}
+
+
 def report(name: str) -> None:
+    name = ALIASES.get(name, name)
     nvcc = _build.nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
@@ -34,10 +42,35 @@ def report(name: str) -> None:
                               check=True).stdout
     print(f"== {name}.cu: ptxas -v")
     print("\n".join(lines))
+    regs = ptxas_usage(lines)
     for fn, (hgmma, hmma) in sass_counts(sass).items():
-        print(f"== {name}.cu: {fn}: SASS lines with HGMMA {hgmma}, HMMA {hmma}")
+        r, spill = regs.get(fn, ("?", "?"))
+        print(f"== {name}.cu: {fn}: SASS lines with HGMMA {hgmma}, HMMA {hmma}; "
+              f"registers {r}, spills {spill}")
     counts = {op: sum(f" {op}" in ln for ln in sass.splitlines()) for op in ("HGMMA", "HMMA")}
     print(f"== {name}.cu: SASS lines with HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}")
+
+
+def ptxas_usage(lines) -> dict:
+    """{kernel (mangled name): (registers, bytes of spill stores + loads)}
+    from ptxas -v's lines: "Compiling entry function 'f'", then "Function
+    properties for f" with its spill line, then "Used r registers"."""
+    usage, fn = {}, None
+    for ln in lines:
+        m = re.search(r"(?:entry function '|Function properties for )([^' ]+)", ln)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, [None, 0])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            usage[fn][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
 
 
 def sass_counts(sass: str) -> dict:

@@ -93,7 +93,7 @@ def test_winograd_kernel_matches_plain(cuda, gn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,d", [(8, 40), (8, 80), (8, 160)])
+@pytest.mark.parametrize("heads,d", [(8, 40), (8, 80), (8, 160), (5, 64), (1, 512)])
 def test_packed_attention_exact_kernel_holds_logits_above_88(cuda, heads, d):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn(2, 512, heads * d, generator=g, device=cuda) for _ in range(3))
@@ -241,6 +241,57 @@ def test_packed_attention_kernel_at_the_glide_sites(cuda, b, nq, nk, c, heads):
     assert err.item() <= 2e-2
 
 
+# (B, Nq, Nk, heads, D, the q rows of a CTA and the head groups packed_plan
+# takes): each head width at each of its row tiers, with one group and with
+# several, ragged Nq (1000, 300, 77, 65), Nk 77, Nq + 128 and 1, and C 120
+# (boxes past C)
+PACKED_CASES = [
+    (1, 4096, 4096, 5, 64, 192, 5), (2, 1024, 1024, 10, 64, 128, 10),
+    (2, 4096, 384, 20, 64, 64, 1), (2, 1000, 77, 5, 64, 128, 5),
+    (2, 1000, 1128, 5, 64, 128, 5), (16, 1024, 1024, 10, 64, 128, 1),
+    (1, 4096, 4096, 8, 40, 128, 1), (2, 1000, 77, 8, 40, 128, 1), (2, 4096, 77, 20, 40, 64, 1),
+    (1, 300, 1152, 3, 40, 128, 1), (2, 1000, 1128, 8, 80, 128, 2),
+    (2, 4096, 77, 16, 80, 64, 1), (2, 1000, 1128, 8, 160, 64, 4), (1, 77, 300, 2, 160, 64, 1),
+    (1, 1000, 4096, 1, 512, 64, 1), (2, 300, 77, 1, 512, 64, 1), (1, 65, 1, 1, 512, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("b,nq,nk,heads,d,rows,groups", PACKED_CASES)
+def test_packed_attention_kernel_at_every_width(cuda, b, nq, nk, heads, d, rows, groups,
+                                                exact):
+    """K1 at D 40 / 64 / 80 / 160 / 512, each row tier, heads in one CTA or
+    split over several, any Nq and Nk: one launch of the CTAs its plan
+    implies, finite, within 2e-2 of the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = flash_attention.packed_plan(nq, heads * d, heads, b, sms)
+    assert (plan[0], plan[3]) == (rows, groups)
+    g = torch.Generator(device=cuda).manual_seed(d + nk)
+    q, k, v = (torch.randn(b, n, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    scale = d ** -0.5
+    before = flash_attention.flash_attention_packed.launches
+    got = flash_attention.flash_attention_packed(q, k, v, heads, scale, exact)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_packed.launches == before + 1
+    assert flash_attention.last_ctas["mdt_packed_attention"] == b * -(-nq // rows) * groups
+    assert torch.isfinite(got.float()).all()
+    ref = flash_attention.packed_attention_plain(q, k, v, heads, scale, exact)
+    assert rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_packed_attention_raises_on_shapes_without_a_plan(cuda):
+    """D 512 takes one head, and D 48 is no width of the kernel: both raise
+    on the card instead of running anything else."""
+    two = torch.zeros(1, 256, 1024, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_packed(two, two, two, 2, 512 ** -0.5)
+    odd = torch.zeros(1, 256, 8 * 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_packed(odd, odd, odd, 8, 48 ** -0.5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,b,h,w,c,co", [
     ("glide", 2, 32, 40, 192, 3), ("glide", 1, 17, 9, 64, 3),
@@ -288,7 +339,8 @@ def grads_of(fn, inputs, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,heads,exact", [(320, 5, False), (320, 8, True), (512, 1, True)])
+@pytest.mark.parametrize("c,heads,exact", [(320, 5, False), (320, 8, True), (512, 1, True),
+                                           (640, 8, True), (1280, 8, False)])
 def test_packed_attention_gradient_bridge(cuda, c, heads, exact):
     """K1 forward, einsum-attention backward, against autograd through the
     plain version; the backward launches no kernel."""

@@ -75,6 +75,38 @@ def test_packed_attention_routes_by_the_token_gates():
     assert flash_attention.flash_attention.launches == 0
 
 
+@pytest.mark.parametrize("b,nq,c,heads,plan", [
+    (16, 4096, 320, 5, (192, 64, 6, 1)),   # SD2 ds1: K10d's 192-row tier
+    (16, 1024, 640, 10, (128, 64, 4, 1)),  # SD2 ds2
+    (8, 4096, 512, 1, (64, 64, 1, 1)),     # the VAE mid: its own D 512 kernel
+    (8, 4096, 320, 8, (128, 64, 8, 1)),    # SD1 ds1, D 40: 128 rows beat 192 there
+    (8, 1024, 640, 8, (128, 64, 4, 2)),    # SD1 ds2, D 80: 64 CTAs -> two groups of 4 heads
+    (8, 1024, 1280, 8, (64, 32, 2, 1)),    # SD1 ds4, D 160: 32-key tiles, 160 KB of q tile
+    (16, 1024, 384, 6, (128, 64, 8, 1)),   # GLIDE base ds2
+    (8, 1024, 384, 6, (128, 64, 8, 2)),    # GLIDE super-res ds8
+    (8, 256, 768, 12, (128, 64, 8, 12)),   # GLIDE's 16^2 tier: a head a CTA
+    (1, 1024, 512, 2, None),               # D 512 takes one head
+    (1, 1024, 384, 8, None),               # D 48 is no width of the kernel
+])
+def test_packed_plan_at_the_kernel_sites(b, nq, c, heads, plan):
+    """K1's launch plan (rows, keys a tile, stages, head groups) on an H100,
+    that its q tile and ring fit a block's shared memory, and that each
+    group's columns are whole 64-column boxes."""
+    assert flash_attention.packed_plan(nq, c, heads, b) == plan
+    if plan is not None and c // heads != 512:
+        rows, kt, stages, groups = plan
+        d = c // heads
+        stage = (-(-(-(-d // 16) * 16) // 64) + -(-d // 64)) * kt * 128
+        assert 2 <= stages <= flash_attention.MAX_STAGES
+        assert groups == 1 or (c // groups) % 64 == 0
+        assert (flash_attention.SMEM_SLACK + -(-c // groups // 64) * rows * 128
+                + stages * stage <= flash_attention.SMEM_MAX)
+    q = torch.empty(b, nq, c, dtype=torch.bfloat16, device="meta")
+    for nk in (1, 77, nq + 128):   # any Nk: the keys past it are TMA's zero fill
+        k = torch.empty(b, nk, c, dtype=torch.bfloat16, device="meta")
+        assert flash_attention.kernel_supports(q, k, heads) == (plan is not None)
+
+
 @pytest.mark.parametrize("gn", [True, False])
 def test_winograd_plain_matches_pallas(gn):
     rng = np.random.default_rng(1)
