@@ -107,9 +107,12 @@ Phases (one line each; any failure raises and exits non-zero):
      both softmax modes; beside SDPA's flash backend or the unfused chain,
      and K1 at the same shape; CTAs (as the launchers report them) and
      waves of each case, K10c's two launches (its projection GEMM, then
-     the attention) timed apart; then `scripts/ptxas_report.py
-     attn_variants`, whose SASS must show wgmma and no mma.sync in the
-     K10c / K10d kernels. No path of either package launches them;
+     the attention) timed apart, the ones kernels' plan (rows, stages,
+     head groups) and device ms (torch.profiler); then
+     `scripts/ptxas_report.py attn_variants`, whose SASS must show wgmma
+     and no mma.sync in the K10c / K10d kernels and the ones kernel, and
+     ptxas no spills in the out and ones kernels. No path of either
+     package launches them;
  28. K12, the ten ds1 ablation modes of bench_attn_ds1.py and bf16s with
      the packed bf16 exp, vs their plain versions at its shape (16, 4096,
      320, 5 heads): on independent randn q, k, v and on the script's own
@@ -118,8 +121,13 @@ Phases (one line each; any failure raises and exits non-zero):
      diagonal logits pass 88 in ~2% of rows, with the plain version's
      non-finite positions (an output whose finiteness does not move when
      s moves by 2^-16 must match), beside K1 raw-exp at scale 1 and SDPA's
-     flash backend at scale 1 (full, kt_full, bf16s, bf16s_ex2); then the shootout
-     (`bench/attn_ds1.py`) over every variant;
+     flash backend at scale 1 (full, kt_full, bf16s, bf16s_ex2), with each
+     mode's plan (rows, stages, head groups), CTAs, waves and device ms
+     (torch.profiler); then the shootout (`bench/attn_ds1.py`) over every
+     variant; then `scripts/ptxas_report.py attn_diag`, whose SASS must show
+     wgmma, no mma.sync and ptxas no spills in every `diag_kernel`, and
+     K1's and K10d's kernels must keep the registers they had before the
+     other modes joined their core;
  29. the eval path at full width: CLIPScoreConfig.vit_h14 (ViT-H/14 and
      the 24-layer text tower, fp32, seeded random weights) scores phase 5's
      8 images against their tokens (finite, within [-100, 100], identical
@@ -197,6 +205,30 @@ def cuda_ms(fn, runs: int = RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, runs: int = 10) -> "float | None":
+    """Mean device time in ms of a launch of the kernel named `kernel` that
+    `fn` makes once a call, by torch.profiler (CUDA activity only) over
+    `runs` calls; None where the profiler recorded none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    # the mean over the launches it recorded: a session may drop some
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                for e in evs)
+    count = sum(e.count for e in evs)
+    return total / count / 1000.0 if count else None
+
+
+def fmt_ms(ms: "float | None") -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def errors(got: torch.Tensor, ref: torch.Tensor) -> "tuple[float, float]":
@@ -2280,8 +2312,11 @@ PROJ_CASES = [("ds1_16x4096x320", 16, 4096, 320, False), ("ds2_16x1024x640", 16,
 OUT_EXTRA_CASES = [("ds2_c640_to_c320", 16, 1024, 1024, 640, False, 320),
                    # K11's ds4 shape: the out kernel's 64-row tier (C > 640)
                    ("ds4_16x256x1280", 16, 256, 256, 1280, True, 1280)]
-# the kernels of attn_variants.cu that must run wgmma and no mma.sync
-WGMMA_KERNELS = ("attn_out_kernel", "qkv_proj_kernel")
+# the kernels of attn_variants.cu that must run wgmma and no mma.sync, and
+# those of them (on the attention core) whose ptxas report must show no spills
+WGMMA_KERNELS = ("attn_out_kernel", "qkv_proj_kernel", "attn_ones_kernel")
+CORE_KERNELS = ("attn_out_kernel", "attn_ones_kernel")
+ONES_KERNELS = ("attn_ones", "attn_fold", "ones_attention")
 K11_CASES = [  # bench_attention.py:111-113 (exact, as its main runs `ones`), a ragged Nq
     ("ds1_16x4096x320", 16, 4096, 4096, 320, True),
     ("ds2_16x1024x640", 16, 1024, 1024, 640, True),
@@ -2322,12 +2357,11 @@ def phase27(gen: torch.Generator, table: dict) -> None:
 
     def grid(name):
         """(CTAs, waves) of the case's attention launch as its launcher
-        reported them: the out kernel (K10c's second launch, K10d) holds
-        one CTA an SM; the ones kernels' residency is not known here."""
-        if name in ("attn_out", "attn_proj"):
-            ctas = av.last_ctas["mdt_attn_out"]
-            return ctas, ctas / sms
-        return av.last_ctas["mdt_attn_ones"], None
+        reported them: the out kernel (K10c's second launch, K10d) and the
+        ones kernel hold one CTA an SM (their q tile and ring)."""
+        ctas = av.last_ctas["mdt_attn_out" if name in ("attn_out", "attn_proj")
+                            else "mdt_attn_ones"]
+        return ctas, ctas / sms
 
     def run_case(name, label, b, nq, nk, c, exact, kernel_fn, plain_fn, library_fn,
                  k1_fn, bnd, extra=None):
@@ -2344,14 +2378,18 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         library_ms = cuda_ms(library_fn, runs=5)
         k1_ms = cuda_ms(k1_fn, runs=5) if k1_fn is not None else None
         bound_ms, bound_by, term = bnd
-        extra = {k: f() for k, f in (extra or {}).items()}
+        extra = dict(extra or {})
+        if name in ONES_KERNELS:   # the plan and the kernel's device time
+            extra["plan"] = lambda: av.ones_plan(b, nq, c, c // 64)
+            extra["device_ms"] = lambda: device_ms(kernel_fn, "attn_ones_kernel")
+        extra = {k: f() for k, f in extra.items()}
         log(f"[phase 27] {name} {label} B={b} Nq={nq} Nk={nk} C={c} exact={exact} "
             f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"k1_ms={'n/a' if k1_ms is None else f'{k1_ms:.4f}'} "
             f"bound_ms={bound_ms:.4f} ({term}) ctas={ctas} "
             f"waves={'n/a' if waves is None else f'{waves:.2f}'}"
-            + "".join(f" {k}={v}" for k, v in extra.items()))
+            + "".join(f" {k}={fmt_ms(v) if k == 'device_ms' else v}" for k, v in extra.items()))
         assert err <= REL_TOL, (name, label, err)
         table[name]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
@@ -2443,15 +2481,21 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                  variant_bound(b, nq, nk, c))
         del q, k, v
         torch.cuda.empty_cache()
-    hold_wgmma_sass("attn_variants", WGMMA_KERNELS, "phase 27")
+    hold_wgmma_sass("attn_variants", WGMMA_KERNELS, "phase 27", spills=CORE_KERNELS)
 
 
-def hold_wgmma_sass(source: str, kernels, phase: str, spills: bool = False) -> None:
+SASS_REPORTS: dict = {}   # csrc source -> scripts/ptxas_report.py's report, as held
+
+
+def hold_wgmma_sass(source: str, kernels, phase: str, spills=()) -> None:
     """ptxas -v of csrc/<source>.cu (registers, spills) and the tensor-core
     lines in the SASS of each kernel: every instantiation of `kernels` runs
-    wgmma (HGMMA) and no mma.sync (HMMA), and with `spills` none spills."""
+    wgmma (HGMMA) and no mma.sync (HMMA), and none of `spills` (kernel
+    names; True: all of `kernels`) spills. Keeps the report in
+    SASS_REPORTS."""
     report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
                                       "ptxas_report.py"), source])
+    SASS_REPORTS[source] = report
     for line in report.splitlines():
         log(f"[{phase}] {line}")
     for kname in kernels:
@@ -2460,8 +2504,58 @@ def hold_wgmma_sass(source: str, kernels, phase: str, spills: bool = False) -> N
         for ln in rows:
             hgmma, hmma = (int(x) for x in re.search(r"HGMMA (\d+), HMMA (\d+)", ln).groups())
             assert hgmma > 0 and hmma == 0, ln
-            if spills:
+            if spills is True or kname in spills:
                 assert re.search(r"spills 0$", ln), ln
+
+
+# K1's and K10d's registers a thread (ptxas -v) before K12 and the ones
+# kernel joined their core, which they must keep: (source, kernel, template
+# arguments)
+CORE_REGISTERS = {
+    ("attn_variants", "attn_out_kernel", (1,)): 129,
+    ("attn_variants", "attn_out_kernel", (2,)): 168,
+    ("attn_variants", "attn_out_kernel", (3,)): 128,
+    ("packed_attention", "packed_attn_kernel", (64, 64, 1)): 129,
+    ("packed_attention", "packed_attn_kernel", (64, 64, 2)): 168,
+    ("packed_attention", "packed_attn_kernel", (64, 64, 3)): 128,
+    ("packed_attention", "packed_attn_kernel", (40, 64, 1)): 113,
+    ("packed_attention", "packed_attn_kernel", (40, 64, 2)): 168,
+    ("packed_attention", "packed_attn_kernel", (80, 64, 1)): 141,
+    ("packed_attention", "packed_attn_kernel", (80, 64, 2)): 168,
+    ("packed_attention", "packed_attn_kernel", (160, 32, 1)): 178,
+    ("packed_attention", "packed_attn512_kernel", ()): 128,
+}
+
+
+def kernel_registers(report: str) -> dict:
+    """{(kernel, integer template arguments): registers} of a ptxas report's
+    per-kernel lines: the kernel's name is the mangled name's identifier
+    ending in `_kernel` (length-prefixed: `15attn_out_kernel`), its
+    arguments the literals after it (`ILi64ELi64ELi3EE` -> (64, 64, 3);
+    bools as 0 / 1)."""
+    out = {}
+    for ln in report.splitlines():
+        m = re.search(r": (\S+): SASS lines .* registers (\d+),", ln)
+        if not m:
+            continue
+        mangled, pos = m.group(1), len("_ZN")
+        while (length := re.match(r"\d+", mangled[pos:])):   # <length><identifier>, in turn
+            pos += length.end() + int(length.group())
+            name = mangled[pos - int(length.group()):pos]
+            if name.endswith("_kernel"):
+                args = re.findall(r"L[ib](\d+)E", mangled[pos:].split("EE")[0] + "E")
+                out[(name, tuple(int(a) for a in args))] = int(m.group(2))
+                break
+    return out
+
+
+def hold_core_registers(phase: str) -> None:
+    """K1's and K10d's kernels (phases 2 and 27's reports) hold their
+    registers (CORE_REGISTERS) with K12 and the ones kernel on their core."""
+    for (source, kname, args), want in CORE_REGISTERS.items():
+        got = kernel_registers(SASS_REPORTS[source]).get((kname, args))
+        log(f"[{phase}] {source}.cu {kname}{list(args)} registers {got} (expected {want})")
+        assert got == want, (source, kname, args, got, want)
 
 
 
@@ -2488,51 +2582,12 @@ DIAG_LIBRARY = ("diag_full", "diag_kt_full", "diag_bf16s", "diag_bf16s_ex2")
 # and, in bf16s, one whose row leans on a score at a bf16 rounding midpoint
 # (bf16(s) jumps by a bf16 step there, exp(bf16(s)) by 28% at s ~ 40). The
 # plain version is run again with s moved by a relative -2^-16 and +2^-16
-# (~100 fp32 ulps, above the 64 u ~ 2^-18 worst case of a 64-term fp32
-# sum). An output may be non-finite where the plain one is finite (or the
-# other way) only where one of those moves flips it; every output finite in
-# both is held within REL_TOL (of its scale, above) plus its allowance: how
-# far the moves took the plain output, and for bf16s `bf16s_rounding_bound`.
-DIAG_BOUNDARY_EPS = 2.0 ** -16
-
-
-def bf16s_rounding_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         heads: int, exp_table: "torch.Tensor | None" = None) -> torch.Tensor:
-    """An upper bound, per output of bf16s, on how far it moves when the
-    scores within DIAG_BOUNDARY_EPS (relative) of a bf16 rounding midpoint
-    round to the other side, in any combination: with dp_j the change of
-    p_j = exp(bf16(s_j)) at such a key (0 elsewhere), the row's o = P V / l
-    becomes o + sum_j dp_j (v_j - o) / (l + sum_j dp_j), so it moves by at
-    most sum_j |dp_j| |v_j - o| / (l - sum_j |dp_j|); and by at most
-    max_j |v_j| + |o|, since o stays a convex combination of the v_j. The
-    exp is the one of `exp_table` (`attn_diag.exp_rounded`)."""
-    from minddiffusion_tpu_torch.ops.attn_diag import exp_rounded
-
-    b, n, c = q.shape
-    d = c // heads
-    out = torch.empty(b, n, c, device=q.device)
-    for i in range(b):
-        for h in range(heads):
-            sl = slice(h * d, (h + 1) * d)
-            s = torch.matmul(q[i, :, sl].float(), k[i, :, sl].float().T)
-            sb = s.to(torch.bfloat16)
-            bits = sb.view(torch.int16).to(torch.int32)
-            # the other bf16 neighbour of s: one step up or down the bit pattern
-            step = torch.where((s > sb.float()) ^ (bits < 0), 1, -1)
-            other = (bits + step).to(torch.int16).view(torch.bfloat16)
-            p = exp_rounded(sb, torch.bfloat16, exp_table)
-            near = (s - (sb.float() + other.float()) / 2).abs() <= DIAG_BOUNDARY_EPS * s.abs()
-            dp = torch.where(near, (exp_rounded(other, torch.bfloat16, exp_table) - p).abs(), 0.0)
-            vh = v[i, :, sl].float()
-            l = p.sum(-1, keepdim=True)
-            o = torch.matmul(p, vh) / l
-            rows, keys = dp.nonzero(as_tuple=True)       # the few keys near a midpoint
-            moved = dp[rows, keys, None] * (vh[keys] - o[rows]).abs()
-            num = torch.zeros_like(o).index_add_(0, rows, moved)
-            cap = vh.abs().amax(0) + o.abs()
-            out[i, :, sl] = torch.minimum(
-                num / (l - dp.sum(-1, keepdim=True)).clamp_min(0.0), cap)
-    return out
+# (`attn_diag.BOUNDARY_EPS`, ~100 fp32 ulps, above the 64 u ~ 2^-18 worst
+# case of a 64-term fp32 sum). An output may be non-finite where the plain
+# one is finite (or the other way) only where one of those moves flips it;
+# every output finite in both is held within REL_TOL (of its scale, above)
+# plus its allowance: how far the moves took the plain output, and for
+# bf16s `attn_diag.bf16s_rounding_bound`.
 
 
 DIAG_XS = 0.75          # x * 0.75: the script's input with every logit below 88
@@ -2547,13 +2602,14 @@ def max_logit(q: torch.Tensor, k: torch.Tensor, heads: int) -> float:
 
 def hold_diag(name: str, got: torch.Tensor, plain, args: tuple, heads: int,
               overflow: bool, exp_table: "torch.Tensor | None" = None) -> dict:
-    """`got` against the plain version on `args` (DIAG_BOUNDARY_EPS): where
+    """`got` against the plain version on `args` (BOUNDARY_EPS): where
     both are finite, within REL_TOL of the output's scale (`hold_scale`)
     plus its allowance; non-finite where the plain one is, except where the
     plain one's finiteness moves with s's last bits; unless `overflow`,
     finite everywhere in both. bf16s's allowance includes
     `bf16s_rounding_bound` with `exp_table`'s exp."""
-    from minddiffusion_tpu_torch.ops.attn_diag import hold_scale
+    from minddiffusion_tpu_torch.ops.attn_diag import (BOUNDARY_EPS, bf16s_rounding_bound,
+                                                      hold_scale)
 
     ref = plain(*args, heads)
     fin, gfin = torch.isfinite(ref), torch.isfinite(got)
@@ -2562,7 +2618,7 @@ def hold_diag(name: str, got: torch.Tensor, plain, args: tuple, heads: int,
     if name.startswith("diag_bf16s"):
         allowance = bf16s_rounding_bound(*args, heads, exp_table=exp_table)
     flips = torch.zeros_like(fin)
-    for e in (-DIAG_BOUNDARY_EPS, DIAG_BOUNDARY_EPS):
+    for e in (-BOUNDARY_EPS, BOUNDARY_EPS):
         moved = plain(*args, heads, score_scale=1.0 + e)
         mfin = torch.isfinite(moved)
         flips |= mfin != fin
@@ -2630,6 +2686,7 @@ def phase28(gen: torch.Generator, table: dict) -> None:
 
     b, n, c, heads = attn_ds1.B, attn_ds1.N, attn_ds1.C, attn_ds1.H
     d = c // heads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     indep = tuple(torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(3))
     x = attn_ds1.script_input(b, n, c, "cuda")
@@ -2669,6 +2726,12 @@ def phase28(gen: torch.Generator, table: dict) -> None:
                 del ref, fin, gfin, both
             del got
         ms = cuda_ms(lambda: fn(*indep, heads))
+        plan = ad.diag_plan(ad.PLAN_MODES[name], b, n, c, heads)
+        ad.last_ctas.clear()
+        fn(*indep, heads)
+        torch.cuda.synchronize()
+        ctas = next(iter(ad.last_ctas.values()))
+        dev_ms = device_ms(lambda: fn(*indep, heads), "diag_kernel")
         plain_ms = cuda_ms(lambda: plain(*indep, heads), runs=3)
         bound_ms, bound_by, term = attn_ds1.bound(name, b, n, c, heads, CARD["exp_per_s"])
         lib = library_ms if name in DIAG_LIBRARY else None
@@ -2679,13 +2742,15 @@ def phase28(gen: torch.Generator, table: dict) -> None:
                        for lab, r in cases.items())
             + f" script_x:nonfinite={mask['nonfinite']},flippable={mask['flippable']},"
             f"mask_mismatches={mask['mask_mismatches']} "
-            + (f"vs_exact_exp={vs_exact} " if ex2 else "") + f"kernel_ms={ms:.4f} "
+            + (f"vs_exact_exp={vs_exact} " if ex2 else "") + f"plan(rows, stages, groups)={plan} "
+            f"ctas={ctas} waves={ctas / sms:.2f} kernel_ms={ms:.4f} device_ms={fmt_ms(dev_ms)} "
             f"plain_ms={plain_ms:.4f} k1_fast_ms={k1_ms:.4f} "
             f"library_ms={'none' if lib is None else f'{lib:.4f} (sdpa {backend})'} "
             f"bound_ms={bound_ms:.4f} ({term})")
         for label, r in cases.items():
             table[name]["cases"].append({
-                "case": label, "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                "case": label, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": lib, "plan": plan, "ctas": ctas,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bound_term": term,
                 "k1_ms": k1_ms, "holds": {lab: {k: h[k] for k in (
                     "rel_err", "rel_err_raw", "sensitive", "err_sensitive", "nonfinite",
@@ -2696,6 +2761,8 @@ def phase28(gen: torch.Generator, table: dict) -> None:
     results = attn_ds1.main([])
     assert [r["name"] for r in results] == list(attn_ds1.VARIANTS)
     assert all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in results)
+    hold_wgmma_sass("attn_diag", ("diag_kernel",), "phase 28", spills=True)
+    hold_core_registers("phase 28")
 
 
 # ---- eval and export (phases 29, 30) ----------------------------------------
@@ -2869,7 +2936,7 @@ def main() -> int:
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
         for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds", "gemm_ms",
-                    "attn_ms"):
+                    "attn_ms", "device_ms"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

@@ -25,11 +25,12 @@ in both the kernels and the plain versions. The output is in q's dtype.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA
 tensors it launches its kernel (bf16, D = 64, N % 64 == 0) or raises, and
-counts the launch in `.launches`. CUDA source csrc/attn_diag.cu. No path of
-either package calls them: the shootout (`bench/attn_ds1.py`) and
-chip_smoke.py phase 28 drive them. The plain versions run one batch element
-and one head at a time, so an (N, N) fp32 score matrix is the largest
-temporary (64 MB at N 4096).
+counts the launch in `.launches`. CUDA source csrc/attn_diag.cu: every mode
+is K1's attention core (csrc/attn_core.cuh) with stages cut out, launched
+as `diag_plan` says. No path of either package calls them: the shootout
+(`bench/attn_ds1.py`) and chip_smoke.py phase 28 drive them. The plain
+versions run one batch element and one head at a time, so an (N, N) fp32
+score matrix is the largest temporary (64 MB at N 4096).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import ctypes
 
 import torch
 
-from minddiffusion_tpu_torch.ops import _build
+from minddiffusion_tpu_torch.ops import _build, flash_attention as fa
 
 MODES = ("qk", "exp", "nosm", "fp32pv", "full")
 KT_MODES = ("qk", "full")
@@ -48,14 +49,30 @@ KEY_TILE = 64
 _MODE_IDS = {"qk": 0, "exp": 1, "nosm": 2, "fp32pv": 3, "full": 4, "slice": 5,
              "expslice": 6}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "mdt_diag": [_P] * 4 + [_I] * 5 + [_P],
-    "mdt_diag_kt": [_P] * 4 + [_I] * 5 + [_P],
-    "mdt_diag_slice": [_P] * 4 + [_I] * 5 + [_P],
-    "mdt_diag_bf16s": [_P] * 4 + [_I] * 5 + [_P],
+_SIGNATURES = {   # q, k, v, o, work, 8 ints (the shape, the mode, the plan), the stream, int* ctas
+    **{fn: [_P] * 5 + [_I] * 8 + [_P, _P]
+       for fn in ("mdt_diag", "mdt_diag_kt", "mdt_diag_slice", "mdt_diag_bf16s")},
     "mdt_exp_bf16x2_table": [_P, _P],
 }
 _EXP_TABLES: dict = {}
+last_ctas: dict = {}   # CTAs of each entry's last launch, as its C entry reports them
+# Bytes of a ring stage of the core: a K tile of 64 keys; with a V tile
+# where PV runs; fp32pv's V^T tile is fp32, twice a bf16 one
+_K_TILE = KEY_TILE * KERNEL_HEAD_DIM * 2
+_NO_V = ("qk", "exp", "slice", "expslice")
+
+
+def diag_plan(mode: str, b: int, n: int, c: int, heads: int,
+              sms: int = fa.H100_SMS) -> "tuple[int, int, int] | None":
+    """(q rows of a CTA, ring stages, head groups) of a K12 mode's launch
+    (`mode`: one of MODES, SLICE_MODES or "bf16s"; kt's modes as their
+    plain names): K1's plan at D 64 (`flash_attention.packed_plan`), its
+    stages sized for the mode's stage (a K tile only where no V is read,
+    fp32pv's fp32 V^T tile); fp32pv takes at most 128 rows (its 192-row
+    kernel spilled)."""
+    stage = _K_TILE * (1 if mode in _NO_V else 3 if mode == "fp32pv" else 2)
+    plan = fa.packed_plan(n, c, heads, b, sms, stage, 128 if mode == "fp32pv" else 192)
+    return None if plan is None else (plan[0], plan[2], plan[3])
 
 
 def _check_mode(what: str, mode: str, allowed: tuple) -> None:
@@ -156,6 +173,51 @@ def exp_rounded(s: torch.Tensor, dtype: torch.dtype,
     return exp_table.float()[s.to(dtype).view(torch.int16).long() & 0xFFFF]
 
 
+# A kernel and its plain version sum s's 64 products in other orders, so s
+# differs in its last bits: a score within BOUNDARY_EPS (relative; ~100
+# fp32 ulps, above the ~2^-18 worst case of a 64-term fp32 sum) of a bf16
+# rounding midpoint may round to the other side in one of them, and bf16s's
+# exp(bf16(s)) then jumps by a bf16 step (28% at s ~ 40).
+BOUNDARY_EPS = 2.0 ** -16
+
+
+def bf16s_rounding_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int, exp_table: "torch.Tensor | None" = None) -> torch.Tensor:
+    """An upper bound, per output of bf16s, on how far it moves when the
+    scores within BOUNDARY_EPS (relative) of a bf16 rounding midpoint
+    round to the other side, in any combination: with dp_j the change of
+    p_j = exp(bf16(s_j)) at such a key (0 elsewhere), the row's o = P V / l
+    becomes o + sum_j dp_j (v_j - o) / (l + sum_j dp_j), so it moves by at
+    most sum_j |dp_j| |v_j - o| / (l - sum_j |dp_j|); and by at most
+    max_j |v_j| + |o|, since o stays a convex combination of the v_j. The
+    exp is the one of `exp_table` (`exp_rounded`)."""
+    b, n, c = q.shape
+    d = c // heads
+    out = torch.empty(b, n, c, device=q.device)
+    for i in range(b):
+        for h in range(heads):
+            sl = slice(h * d, (h + 1) * d)
+            s = torch.matmul(q[i, :, sl].float(), k[i, :, sl].float().T)
+            sb = s.to(torch.bfloat16)
+            bits = sb.view(torch.int16).to(torch.int32)
+            # the other bf16 neighbour of s: one step up or down the bit pattern
+            step = torch.where((s > sb.float()) ^ (bits < 0), 1, -1)
+            other = (bits + step).to(torch.int16).view(torch.bfloat16)
+            p = exp_rounded(sb, torch.bfloat16, exp_table)
+            near = (s - (sb.float() + other.float()) / 2).abs() <= BOUNDARY_EPS * s.abs()
+            dp = torch.where(near, (exp_rounded(other, torch.bfloat16, exp_table) - p).abs(), 0.0)
+            vh = v[i, :, sl].float()
+            l = p.sum(-1, keepdim=True)
+            o = torch.matmul(p, vh) / l
+            rows, keys = dp.nonzero(as_tuple=True)       # the few keys near a midpoint
+            moved = dp[rows, keys, None] * (vh[keys] - o[rows]).abs()
+            num = torch.zeros_like(o).index_add_(0, rows, moved)
+            cap = vh.abs().amax(0) + o.abs()
+            out[i, :, sl] = torch.minimum(
+                num / (l - dp.sum(-1, keepdim=True)).clamp_min(0.0), cap)
+    return out
+
+
 def diag_bf16s_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int, score_scale: float = 1.0,
                      exp_table: "torch.Tensor | None" = None) -> torch.Tensor:
@@ -171,7 +233,7 @@ def diag_bf16s_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(what: str, fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            heads: int, mode: int, k_shape: tuple) -> torch.Tensor:
+            heads: int, mode: str, mode_id: int, k_shape: tuple) -> torch.Tensor:
     b, n, c = q.shape
     for name, t, shape in (("k", k, k_shape), ("v", v, q.shape)):
         if t.device != q.device:
@@ -184,14 +246,20 @@ def _launch(what: str, fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if c % heads or c // heads != KERNEL_HEAD_DIM or n < KEY_TILE or n % KEY_TILE:
         raise ValueError(f"{what}: the kernel takes head dim {KERNEL_HEAD_DIM} and N a "
                          f"multiple of {KEY_TILE}; got C={c}, heads={heads}, N={n}")
+    rows, stages, groups = diag_plan(mode, b, n, c, heads, fa._sms(q.device.index))
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
+    # fp32pv's V^T in fp32, written by the call's first launch
+    work = torch.empty(b, c, n, device=q.device) if mode == "fp32pv" else None
     lib = _build.load("attn_diag", _SIGNATURES)
+    ctas = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, c,
-                           heads, mode, stream)
+    err = getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           None if work is None else work.data_ptr(), b, n, c, heads, mode_id,
+                           rows, stages, groups, stream, ctypes.byref(ctas))
     _build.check(err, f"{what} launch")
+    last_ctas[fn] = ctas.value
     return out
 
 
@@ -202,7 +270,7 @@ def diag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     _check_mode("diag", mode, MODES)
     if q.device.type == "cpu":
         return diag_plain(q, k, v, heads, mode)
-    out = _launch("diag", "mdt_diag", q, k, v, heads, _MODE_IDS[mode], q.shape)
+    out = _launch("diag", "mdt_diag", q, k, v, heads, mode, _MODE_IDS[mode], q.shape)
     diag.launches += 1
     return out
 
@@ -215,7 +283,7 @@ def diag_kt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     if q.device.type == "cpu":
         return diag_kt_plain(q, k, v, heads, mode)
     kt = k.transpose(1, 2).contiguous()
-    out = _launch("diag_kt", "mdt_diag_kt", q, kt, v, heads, _MODE_IDS[mode],
+    out = _launch("diag_kt", "mdt_diag_kt", q, kt, v, heads, mode, _MODE_IDS[mode],
                   (q.shape[0], q.shape[2], q.shape[1]))
     diag_kt.launches += 1
     return out
@@ -229,7 +297,8 @@ def diag_slice(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     _check_mode("diag_slice", mode, SLICE_MODES)
     if q.device.type == "cpu":
         return diag_slice_plain(q, k, v, heads, mode)
-    out = _launch("diag_slice", "mdt_diag_slice", q, k, v, heads, _MODE_IDS[mode], q.shape)
+    out = _launch("diag_slice", "mdt_diag_slice", q, k, v, heads, mode, _MODE_IDS[mode],
+                  q.shape)
     diag_slice.launches += 1
     return out
 
@@ -243,8 +312,8 @@ def diag_bf16s(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
         raise ValueError(f"diag_bf16s: exp must be one of {BF16S_EXPS}, got {exp!r}")
     if q.device.type == "cpu":
         return diag_bf16s_plain(q, k, v, heads)
-    out = _launch("diag_bf16s", "mdt_diag_bf16s", q, k, v, heads, BF16S_EXPS.index(exp),
-                  q.shape)
+    out = _launch("diag_bf16s", "mdt_diag_bf16s", q, k, v, heads, "bf16s",
+                  BF16S_EXPS.index(exp), q.shape)
     diag_bf16s.launches += 1
     return out
 
@@ -271,6 +340,12 @@ def exp_bf16x2_table(device: torch.device) -> torch.Tensor:
 
 for _fn in (diag, diag_kt, diag_slice, diag_bf16s):
     _fn.launches = 0
+
+
+# each variant's mode as `diag_plan` takes it
+PLAN_MODES = {**{f"diag_{m}": m for m in MODES}, "diag_kt_qk": "qk", "diag_kt_full": "full",
+              "diag_qk_slice": "slice", "diag_qkexp_slice": "expslice",
+              "diag_bf16s": "bf16s", "diag_bf16s_ex2": "bf16s"}
 
 
 def _bf16s_ex2_plain(q, k, v, heads, **kw):

@@ -16,9 +16,11 @@ tensors, head h being the column slice [h*D, (h+1)*D):
     output projection in the epilogue; C_out may differ from C.
   * `ones_attention` (K11): K10a's function, a second entry point over its
     kernel (the TPU version leaves q unpadded; the result is the same).
-CUDA source csrc/attn_variants.cu: K10a, K10b and K11 run one mma.sync
-kernel; K10c and K10d run wgmma kernels fed by TMA. Weights are in the JAX
-layout, (C_in, C_out).
+CUDA source csrc/attn_variants.cu, every kernel wgmma fed by TMA: K10a,
+K10b and K11 run the ones kernel, K1's attention core (csrc/attn_core.cuh)
+with a PV product 8 columns wider whose ninth column sums P, launched as
+`ones_plan` says; K10c and K10d the out kernel on the same core. Weights
+are in the JAX layout, (C_in, C_out).
 
 Softmax, as the TPU kernels have it: `exact` subtracts the row max; with
 exact=False, K10a, K10b and K11 take exp(s - 20) and K10c, K10d raw exp(s),
@@ -39,14 +41,17 @@ import ctypes
 
 import torch
 
-from minddiffusion_tpu_torch.ops import _build
+from minddiffusion_tpu_torch.ops import _build, flash_attention as fa
 
 FAST_SHIFT = 20.0      # `_FAST_SHIFT` of the exp(s - 20) variants
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_C = 1280    # the out kernel keeps its q tile (rows x C) in shared memory
+# A ring stage of the ones kernel: a K tile and two V boxes of 64 keys (the
+# head's 64 columns, then the ones column's box)
+ONES_STAGE = 3 * 64 * KERNEL_HEAD_DIM * 2
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {   # each entry ends with an int* that receives its launch's CTAs
-    "mdt_attn_ones": [_P] * 4 + [_I] * 7 + [_F, _I, _P, _P],
+    "mdt_attn_ones": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 4 + [_P, _P],
     "mdt_attn_out": [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P],
     "mdt_qkv_proj": [_P] * 5 + [_I] * 2 + [_P, _P],
 }
@@ -164,6 +169,15 @@ def _launch(entry: str, *args) -> int:
     return err
 
 
+def ones_plan(b: int, nq: int, c: int, heads: int,
+              sms: int = fa.H100_SMS) -> "tuple[int, int, int] | None":
+    """(q rows of a CTA, ring stages, head groups) of the ones kernel: K1's
+    plan at D 64 (`flash_attention.packed_plan`), its stages sized for
+    ONES_STAGE."""
+    plan = fa.packed_plan(nq, c, heads, b, sms, ONES_STAGE)
+    return None if plan is None else (plan[0], plan[2], plan[3])
+
+
 def _ones_launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float, heads: int, exact: bool, ones_mode: int) -> torch.Tensor:
     b, nq, c = q.shape
@@ -173,11 +187,12 @@ def _ones_launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _bf16(what, q, k, v)
     if nq < 1 or nk < 1:
         raise ValueError(f"{what}: Nq and Nk must be >= 1, got {nq}, {nk}")
+    rows, stages, groups = ones_plan(b, nq, c, heads, fa._sms(q.device.index))
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
     err = _launch("mdt_attn_ones", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, nq, nk, c, heads, v_cols, ones_mode, float(scale), int(exact),
-                  _stream(q.device))
+                  b, nq, nk, c, heads, v_cols, ones_mode, float(scale), int(exact), rows,
+                  stages, groups, _stream(q.device))
     _build.check(err, f"{what} launch")
     return out
 

@@ -12,7 +12,7 @@
 //    and the PV product yields the softmax row sum in the ones column.
 //  * mdt_attn_ones, ones_mode 2: `flash_attention_packed_fold`
 //    (`_packed_fold_kernel`, :183). The same fold with plain V: the ones
-//    column is written into shared memory as each V tile lands.
+//    column is a constant tile in shared memory.
 //  * mdt_attn_out: `flash_attention_packed_out` (`_packed_out_kernel`,
 //    :386), attention(q, k, v) @ Wo + bo with the output projection in the
 //    epilogue.
@@ -27,21 +27,27 @@
 //    second is K10d's kernel reading them with a row stride of 3C. The
 //    round trip of q costs 4 B N C bytes (25 us at ds1 at 3.35 TB/s).
 //
-// The ones kernels (attn_ones_kernel, `attend`): the TPU kernels hold a
-// whole row of K in VMEM and take a plain softmax over it; here an online
-// softmax over 64-key tiles, one block per (64-row q tile, head, batch), 4
-// warps of 16 rows, mma.sync m16n8k16 with bf16 operands and fp32
-// accumulators, K tiles by cp.async, V tiles transposed through registers.
-// Keys past Nk are zero-filled and masked to -inf, rows past Nq are zero
-// and not stored. The ones column: the PV product runs over 9 column tiles
-// of 8 instead of 8, the ninth being [1 0 ... 0], so l comes out of the
-// tensor cores. exact=1 rescales the accumulators, the l column with them,
-// at each new row max; exact=0 is exp(s - 20) (`_FAST_SHIFT`) with no
-// rescale. l is the sum of the rounded P, as on the TPU.
+// The ones kernels (`attn_ones_kernel<NWG>`): K1 at D 64 on the attention
+// core (attn_core.cuh, mode ONES) with its PV product 8 columns wider,
+// wgmma m64n72k16 over the head's two 64-column V boxes, whose column 64
+// is the ones column: l comes out of the tensor cores as the fp32 sum of
+// the rounded P, as on the TPU, and the core's own l is not kept. V' is
+// read from memory (ones_mode 1), since the column is part of the
+// function's input; the second box is loaded whole (8 KB more a stage: one
+// product a k16 slice and the core's descriptors as they are, where a
+// separate 8-column box would take a second, narrower product and an
+// unswizzled layout). ones_mode 2 loads V's box only; each stage's second
+// box is the constant [1, 0 ... 0] tile, written once before the loop.
+// exact=1 rescales all 72 columns at each new row max; exact=0 is exp(s -
+// 20) (`_FAST_SHIFT`), a constant shift. The plan is K1's at D 64
+// (`packed_plan`: 64 / 128 / 192 rows a CTA, head groups where the grid is
+// small), its stages sized for the 24 KB stage (K, V and the ones box).
+// Keys past Nk are TMA's zero fill, masked to -inf; rows past Nq are not
+// stored.
 //
 // The out kernel (attn_out_kernel) and the projection (qkv_proj_kernel) are
 // Hopper designs, the out kernel's attention being the core it shares with
-// K1 (attn_core.cuh): TMA into 128-byte swizzled tiles, full / empty mbarriers,
+// K1 and the ones kernels (attn_core.cuh): TMA into 128-byte swizzled tiles, full / empty mbarriers,
 // warpgroup 0 the producer (one thread issues every load), the other
 // warpgroups wgmma consumers; no mma.sync, and no thread moves an element
 // of K, V or a weight.
@@ -98,8 +104,9 @@
 //    stored from registers they took about half of the kernel's time.
 //
 // Softmax, as the TPU kernels have it: exact=1 the row max, exact=0 raw
-// exp(s) with no shift (fp32 overflow above logit ~88); P rounded to bf16
-// before PV, l the fp32 sum of the unrounded P.
+// exp(s) with no shift (fp32 overflow above logit ~88; the ones kernels:
+// exp(s - 20)); P rounded to bf16 before PV, l the fp32 sum of the
+// unrounded P (the ones kernels: of the rounded P).
 //
 // What bounds them on the H100: at the UNet sites (D = 64, 1024-4096 keys)
 // 4 Nq Nk D flops per head against 6 N C bytes, far above the ~295
@@ -107,228 +114,16 @@
 // floor (ds1: 0.347 ms of products, 0.321 ms of exps), and the projections
 // add 2 N C C_out (K10d) or 8 N C^2 (K10c) flops.
 #include "attn_core.cuh"
-#include "mma.cuh"
-
-#include <math.h>
-
-namespace {
-
-constexpr float FAST_SHIFT = 20.0f;
-constexpr int D = 64;              // head dim every entry point takes
-constexpr int BQ = 64;             // q rows per block, 16 per warp
-constexpr int BK = 64;             // keys per tile
-constexpr int AP = 8;              // bf16 padding per shared row (bank spread)
-constexpr int LDH = D + AP;        // a row of a Q, K, A or transposed W tile
-constexpr int LDT = BK + AP;       // a row of a transposed V tile
-constexpr int NT = D / 8;          // 8-column output tiles of one head
-constexpr int THREADS = 128;
-constexpr int MAX_C = 1280;        // the out kernel's q / o tile: 64 rows above C 640
-
-// 64 rows x 64 columns of a bf16 row-major matrix into a [64][LDH] shared
-// tile, the fp32 `scale` applied and the result rounded to bf16 when
-// scale != 1; rows past `rows` are zero.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ldd,
-                                          const __nv_bfloat16* src, size_t lds,
-                                          int rows, float scale) {
-  for (int i = threadIdx.x; i < BQ * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), cv = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + r * lds + cv);
-      if (scale != 1.f) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ldd + cv) = val;
-  }
-}
-
-// One head's attention for this warp's 16 q rows over all nk keys. Q sits
-// in shared memory at qs (row stride ldq, the warp's rows at warp*16). K
-// and V rows of this head start at kb / vb with token strides ks_ / vs_.
-// NO = NT output tiles, + 1 for the ones column (ones_mode 1: the
-// augmented V's columns D..D+7 from memory; 2: [1 0 ... 0] built here).
-// Leaves the unnormalised accumulators in acc and, where there is no ones
-// column, the fp32 row sums of the unrounded P (rows g and g+8) in l_run.
-template <int NO>
-__device__ __forceinline__ void attend(float (&acc)[NO][4], float (&l_run)[2],
-                                       const __nv_bfloat16* qs, int ldq,
-                                       __nv_bfloat16* ks, __nv_bfloat16* vts,
-                                       const __nv_bfloat16* kb, int ks_,
-                                       const __nv_bfloat16* vb, int vs_, int ones_mode,
-                                       int nk, int exact, float shift) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  l_run[0] = l_run[1] = 0.f;
-
-  for (int kt = 0; kt < nk; kt += BK) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int i = tid; i < BK * (D / 8); i += THREADS) {
-      const int r = i / (D / 8), cv = (i % (D / 8)) * 8;
-      const bool ok = kt + r < nk;
-      cp_async16(ks + r * LDH + cv, kb + (size_t)(ok ? kt + r : 0) * ks_ + cv, ok);
-    }
-    for (int i = tid; i < BK * NO; i += THREADS) {
-      const int r = i / NO, cv = (i % NO) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (kt + r < nk) {
-        if (cv < D || ones_mode == 1)
-          raw = *reinterpret_cast<const uint4*>(vb + (size_t)(kt + r) * vs_ + cv);
-        else
-          raw.x = 0x3F80u;  // bf16 1.0 in element 0, zeros after it
-      }
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vts[(cv + j) * LDT + r] = e[j];
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys for this warp, fp32 in registers.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = qs + (wr + g) * ldq + kk + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * ldq), ld32(qa + 8), ld32(qa + 8 * ldq + 8)};
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * LDH + kk + 2 * t;
-        mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-    if (kt + BK > nk) {  // keys past nk leave the softmax
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int col = kt + j * 8 + 2 * t;
-        if (col >= nk) s[j][0] = s[j][2] = -INFINITY;
-        if (col + 1 >= nk) s[j][1] = s[j][3] = -INFINITY;
-      }
-    }
-
-    // Softmax numerators; each thread holds rows g and g+8 of the warp's 16.
-    if (exact) {
-      float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      }
-      const float alpha0 = __expf(m_run[0] - mx[0]);
-      const float alpha1 = __expf(m_run[1] - mx[1]);
-      m_run[0] = mx[0];
-      m_run[1] = mx[1];
-      l_run[0] *= alpha0;
-      l_run[1] *= alpha1;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= alpha0;
-        acc[n][1] *= alpha0;
-        acc[n][2] *= alpha1;
-        acc[n][3] *= alpha1;
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][0] = __expf(s[j][0] - mx[0]);
-        s[j][1] = __expf(s[j][1] - mx[0]);
-        s[j][2] = __expf(s[j][2] - mx[1]);
-        s[j][3] = __expf(s[j][3] - mx[1]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][0] = __expf(s[j][0] - shift);
-        s[j][1] = __expf(s[j][1] - shift);
-        s[j][2] = __expf(s[j][2] - shift);
-        s[j][3] = __expf(s[j][3] - shift);
-      }
-    }
-    if (NO == NT) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        l_run[0] += s[j][0] + s[j][1];
-        l_run[1] += s[j][2] + s[j][3];
-      }
-    }
-
-    // acc += bf16(P) V: the S accumulators are reused as A fragments.
-#pragma unroll
-    for (int jj = 0; jj < BK / 16; ++jj) {
-      const uint32_t a[4] = {pack_bf16(s[2 * jj][0], s[2 * jj][1]),
-                             pack_bf16(s[2 * jj][2], s[2 * jj][3]),
-                             pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
-                             pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vp = vts + (n * 8 + g) * LDT + jj * 16 + 2 * t;
-        mma_bf16(acc[n], a, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-}
-
-// K10a / K11 (ones_mode 1, v = the augmented V, v_cols = 2c) and K10b
-// (ones_mode 2, v plain, v_cols = c). Grid (ceil(nq / 64), heads, bsz).
-__global__ void __launch_bounds__(THREADS) attn_ones_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int nq, int nk,
-    int c, int v_cols, int ones_mode, float scale, int exact) {
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * LDH];
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDH];
-  __shared__ __align__(16) __nv_bfloat16 vts[(D + 8) * LDT];
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const size_t vcol = (size_t)h * (ones_mode == 1 ? 2 * D : D);
-
-  load_rows(qs, LDH, q + ((size_t)b * nq + q0) * c + h * D, c, nq - q0, scale);
-  float acc[NT + 1][4], l_unused[2];
-  attend<NT + 1>(acc, l_unused, qs, LDH, ks, vts, k + (size_t)b * nk * c + h * D, c,
-                 v + (size_t)b * nk * v_cols + vcol, v_cols, ones_mode, nk, exact,
-                 FAST_SHIFT);
-  // l is column 0 of the ones tile: held by the quad's t = 0 thread
-  const float l0 = __shfl_sync(0xffffffffu, acc[NT][0], lane & ~3);
-  const float l1 = __shfl_sync(0xffffffffu, acc[NT][2], lane & ~3);
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  __nv_bfloat16* ob = o + (size_t)b * nq * c + h * D;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int cc = n * 8 + 2 * t;
-    if (r0 < nq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * c + cc) =
-          pack_bf16(acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < nq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * c + cc) =
-          pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
-  }
-}
-
-}  // namespace
 
 // ---- K10c / K10d: warp-specialised attention with the Wo epilogue ----------
 
 namespace {
 
+constexpr int D = 64;                   // head dim every entry point takes
+constexpr int MAX_C = 1280;             // the out kernel's q / o tile: 64 rows above C 640
 constexpr int KT = 64;                  // keys per tile
 constexpr int BOX = 64 * 128;           // 64 rows of one 64-column swizzled box: 8 KB
 constexpr int STAGE_BYTES = 2 * BOX;    // a K and a V tile, or two 64-column Wo boxes
-constexpr int MAX_STAGES = 8;
 constexpr int EPI_N = 128;              // output columns of one epilogue pass
 // q rows of a CTA: 192 (3 consumer warpgroups) up to C 448 where Nq is long
 // enough that the coarser last wave costs less than the third warpgroup
@@ -373,7 +168,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_out_kernel(
       for (int h = 0; h < heads; ++h)
         tma_load_3d(qtile + h * BM * 128, &tm_q, q_full, h * D, q0, b);
       // K and V tiles, head after head: the ring runs on across heads
-      ring = load_heads<Head64>(ring, &tm_k, &tm_v, 0, heads, nt, b);
+      ring = load_heads<Head64>(ring, &tm_k, &tm_v, 0, heads, nt, b, 0, D, Head64::VBOX);
       // then Wo, rows 64 hh.. of each EPI_N-column pass, one stage a head; a
       // box wholly past C_out is not loaded (its columns are not stored)
       for (int n0 = 0; n0 < c_out; n0 += EPI_N)
@@ -586,26 +381,66 @@ cudaError_t launch_attn_out(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   return cudaGetLastError();
 }
 
+// ---- K10a / K10b / K11: the ones kernels -----------------------------------
+
+using HeadOnes = Head<D, KT, D + 8, ONES>;   // PV 72 wide: the head's columns and the ones column
+
+template <int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) attn_ones_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o, int nk,
+    int heads, int boxes, int stages, float scale, int exact, int ones_mode) {
+  attn_cta<HeadOnes, NWG>(&tm_q, &tm_k, &tm_v, &tm_o, nk, heads, boxes, stages, scale, exact,
+                          ones_mode);
+}
+
+template <int NWG>
+cudaError_t launch_ones(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                        const CUtensorMap& tm_o, int bsz, int nq, int nk, int heads, int groups,
+                        int stages, float scale, int exact, int ones_mode, cudaStream_t s,
+                        int* ctas) {
+  const int hpc = heads / groups;   // a 64-column box a head
+  const int smem = cta_smem<HeadOnes>(64 * NWG, hpc, stages);
+  if (smem == 0) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<attn_ones_kernel<NWG>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nq + 64 * NWG - 1) / (64 * NWG), bsz, groups);
+  if (ctas) *ctas = (int)(grid.x * grid.y * grid.z);
+  attn_ones_kernel<NWG><<<grid, 128 * (NWG + 1), smem, s>>>(tm_q, tm_k, tm_v, tm_o, nk, hpc, hpc,
+                                                            stages, scale, exact, ones_mode);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry below writes the CTAs it launches to `ctas` (may be NULL).
 
 // q: (bsz, nq, c), k: (bsz, nk, c), v: (bsz, nk, v_cols), o: (bsz, nq, c);
-// bf16, contiguous. c = heads * 64; ones_mode 1 takes the augmented V
-// (v_cols = 2c), 2 plain V (v_cols = c). nq, nk >= 1.
+// bf16, contiguous, 16-byte aligned. c = heads * 64; ones_mode 1 takes the
+// augmented V (v_cols = 2c), 2 plain V (v_cols = c). nq, nk >= 1. The plan
+// (q rows of a CTA 64 / 128 / 192, ring stages, head groups) is
+// `ones_plan`'s in ops/attn_variants.py.
 extern "C" int mdt_attn_ones(const void* q, const void* k, const void* v, void* o,
                              int bsz, int nq, int nk, int c, int heads, int v_cols,
-                             int ones_mode, float scale, int exact, void* stream, int* ctas) {
-  if (c != heads * D || nq < 1 || nk < 1 || (ones_mode != 1 && ones_mode != 2) ||
-      v_cols != (ones_mode == 1 ? 2 * c : c))
+                             int ones_mode, float scale, int exact, int rows, int stages,
+                             int groups, void* stream, int* ctas) {
+  if (c != heads * D || nq < 1 || nk < 1 || bsz < 1 || (ones_mode != 1 && ones_mode != 2) ||
+      v_cols != (ones_mode == 1 ? 2 * c : c) || groups < 1 || heads % groups)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((nq + BQ - 1) / BQ, heads, bsz);
-  if (ctas) *ctas = (int)(grid.x * grid.y * grid.z);
-  attn_ones_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq, nk, c,
-      v_cols, ones_mode, scale, exact);
-  return (int)cudaGetLastError();
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (rows < 64 || rows > 192 || rows % 64 || !make_map(&tm_q, q, bsz, nq, c, 64, rows) ||
+      !make_map(&tm_k, k, bsz, nk, c, 64, KT) || !make_map(&tm_v, v, bsz, nk, v_cols, 64, KT) ||
+      !make_map(&tm_o, o, bsz, nq, c, 64, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 192)
+    return (int)launch_ones<3>(tm_q, tm_k, tm_v, tm_o, bsz, nq, nk, heads, groups, stages, scale,
+                               exact, ones_mode, s, ctas);
+  if (rows == 128)
+    return (int)launch_ones<2>(tm_q, tm_k, tm_v, tm_o, bsz, nq, nk, heads, groups, stages, scale,
+                               exact, ones_mode, s, ctas);
+  return (int)launch_ones<1>(tm_q, tm_k, tm_v, tm_o, bsz, nq, nk, heads, groups, stages, scale,
+                             exact, ones_mode, s, ctas);
 }
 
 // q: (bsz, nq, c), k, v: (bsz, nk, c), each row `ld` elements after the last

@@ -1,9 +1,10 @@
 // Shared Hopper (sm_90a) pieces of the wgmma kernels (winograd.cu,
-// attn_variants.cu, packed_attention.cu and their attention core,
-// attn_core.cuh): shared-memory addresses, mbarriers (a wait that traps
-// instead of hanging), TMA tile loads and their tensor maps, clusters,
-// named barriers, and the warpgroup products, wgmma, with A from shared
-// memory or from registers and B K-major or MN-major.
+// attn_variants.cu, attn_diag.cu, packed_attention.cu and their attention
+// core, attn_core.cuh): shared-memory addresses, mbarriers (a wait that
+// traps instead of hanging), TMA tile loads and their tensor maps (bf16 or
+// fp32), clusters, named barriers, and the warpgroup products, wgmma, with
+// A from shared memory or from registers and B K-major or MN-major (bf16),
+// or A from registers and B K-major (TF32).
 //
 // Tiles are 64 bf16 columns (128 bytes) wide and 128-byte swizzled by TMA:
 // byte (r, 16-byte chunk j) of a 1024-byte-aligned tile sits at
@@ -341,6 +342,32 @@ __device__ __forceinline__ void wgmma_rs_m64n40k16(float (&d)[20], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 72, fp32) (+)= A (64 x 16, bf16 in registers) B (16 x 72, shared); TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n72k16(float (&d)[36], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // d (64 x 80, fp32) (+)= A (64 x 16, bf16 in registers) B (16 x 80, shared); TB as above.
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_m64n80k16(float (&d)[40], const uint32_t (&a)[4],
@@ -404,6 +431,35 @@ __device__ __forceinline__ void wgmma_rs_m64n160k16(float (&d)[80], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 64, fp32) (+)= A (64 x 8, tf32 in registers) B (8 x 64, shared, K-major:
+// each of the 64 columns 8 contiguous fp32 values). The TF32 products take
+// both operands K-major only. The A fragment of warp w's rows 16 w ..
+// 16 w + 15 is mma.sync m16n8k8's: lane 4 g + t holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4), fp32 bits (PTX takes no .f32 register as a
+// .tf32 operand); the tensor cores read each value's top 19 bits.
+__device__ __forceinline__ void wgmma_tf32_rs_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // The RS product at width N, as the attention core names it.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
@@ -414,6 +470,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_rs_m64n40k16<TB>(d, a, db, scale_d);
   else if constexpr (N == 64)
     wgmma_rs_m64n64k16<TB>(d, a, db, scale_d);
+  else if constexpr (N == 72)
+    wgmma_rs_m64n72k16<TB>(d, a, db, scale_d);
   else if constexpr (N == 80)
     wgmma_rs_m64n80k16<TB>(d, a, db, scale_d);
   else {
@@ -445,25 +503,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (planes, rows, cols) bf16 array, rows `ld` elements apart (cols when 0)
-// and planes `plane_ld` apart (rows * ld when 0), as a tensor map whose box
-// is box_cols (128 bytes, swizzled) x box_rows x 1 plane; out-of-range
-// elements read as zero.
+// A (planes, rows, cols) bf16 array (fp32 with `fp32`), rows `ld` elements
+// apart (cols when 0) and planes `plane_ld` apart (rows * ld when 0), as a
+// tensor map whose box is box_cols (128 bytes, swizzled) x box_rows x 1
+// plane; out-of-range elements read as zero.
 bool make_map(CUtensorMap* map, const void* base, long long planes, long long rows,
               long long cols, int box_cols, int box_rows, long long ld = 0,
-              long long plane_ld = 0) {
+              long long plane_ld = 0, bool fp32 = false) {
   EncodeTiled fn = encode_tiled();
+  const int bytes = fp32 ? 4 : 2;
   if (ld == 0) ld = cols;
   if (plane_ld == 0) plane_ld = rows * ld;
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)plane_ld * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * bytes, (cuuint64_t)plane_ld * bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -76,60 +76,15 @@
 
 namespace {
 
-constexpr int MAX_STAGES = 8;
-
-// D 40 / 64 / 80 / 160. One CTA per (BM = 64 NWG q rows, batch element,
-// group of `heads` heads, starting at column blockIdx.z * heads * D);
-// shared memory: the q / o tile (`boxes` 64-column boxes of BM rows), the
-// ring, the barriers.
+// D 40 / 64 / 80 / 160: the core's CTA (`attn_cta`) of BM = 64 NWG q
+// rows, a batch element and a group of `heads` heads.
 template <int D, int KT, int NWG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1) packed_attn_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o, int nk,
     int heads, int boxes, int stages, float scale, int exact) {
-  using H = Head<D, KT>;
-  constexpr int BM = 64 * NWG;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t qtile = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  Ring<H::STAGE> ring;
-  ring.init(qtile + boxes * BM * 128, stages);
-  const uint32_t q_full = ring.bars + 4 * 8 * stages;
-  const int b = blockIdx.y, q0 = blockIdx.x * BM, col0 = blockIdx.z * heads * D;
-  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  if (threadIdx.x == 0) {
-    ring.init_barriers(NWG);
-    mbar_init(q_full, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if constexpr (NWG == 3) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, boxes * BM * 128);
-      for (int j = 0; j < boxes; ++j)
-        tma_load_3d(qtile + j * BM * 128, &tm_q, q_full, col0 + 64 * j, q0, b);
-      load_heads<H>(ring, &tm_k, &tm_v, col0, heads, (nk + KT - 1) / KT, b);
-    }
-  } else {
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    if constexpr (NWG == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
-    const int ci = wg - 1, t128 = threadIdx.x % 128;
-    const int lane = t128 % 32, t = lane % 4, r0 = (t128 / 32) * 16 + lane / 4;
-    const uint32_t slab = qtile + ci * 64 * 128;   // this warpgroup's rows of box 0
-    attend_heads<H>(ring, q_full, slab, BM * 128, heads, nk, r0, t, t128, scale, exact);
-    // every o_h of this warpgroup's rows is in the tile once its threads'
-    // stores are visible to TMA
-    fence_proxy_async();
-    named_barrier_sync(1 + ci, 128);
-    if (t128 == 0) {
-      for (int j = 0; j < boxes; ++j)
-        tma_store_3d(&tm_o, slab + j * BM * 128, col0 + 64 * j, q0 + 64 * ci, b);
-      tma_store_commit();
-      tma_store_wait<0, true>();   // the tile stays until TMA has read it
-    }
-  }
+  attn_cta<Head<D, KT>, NWG>(&tm_q, &tm_k, &tm_v, &tm_o, nk, heads, boxes, stages, scale, exact,
+                             0);
 }
 
 // ---- D 512 -----------------------------------------------------------------
@@ -238,7 +193,7 @@ __global__ void __launch_bounds__(512, 1) packed_attn512_kernel(
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, Q512);
       for (int j = 0; j < 8; ++j) tma_load_3d(qtile + j * H512::BOX, &tm_q, q_full, 64 * j, q0, b);
-      load_heads<H512>(ring, &tm_k, &tm_v, 0, 1, nt, b);
+      load_heads<H512>(ring, &tm_k, &tm_v, 0, 1, nt, b, 0, 512, H512::VBOX);
     }
     return;
   }
@@ -350,27 +305,13 @@ __global__ void __launch_bounds__(512, 1) packed_attn512_kernel(
   }
 }
 
-// Opt kernel Kern in to a block's whole shared memory on the current
-// device, once a device and process (the call costs host time a launch).
-template <auto Kern>
-cudaError_t allow_smem() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
-}
-
 template <int D, int KT, int NWG>
 cudaError_t launch_tile(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
                         const CUtensorMap& tm_o, int bsz, int nq, int nk, int heads, int groups,
                         int stages, float scale, int exact, cudaStream_t s, int* ctas) {
-  using H = Head<D, KT>;
   const int hpc = heads / groups, boxes = (hpc * D + 63) / 64;
-  const int smem = SMEM_SLACK + boxes * 64 * NWG * 128 + stages * H::STAGE;
-  if (stages < 2 || stages > MAX_STAGES || smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const int smem = cta_smem<Head<D, KT>>(64 * NWG, boxes, stages);
+  if (smem == 0) return cudaErrorInvalidValue;
   auto kern = packed_attn_kernel<D, KT, NWG>;
   cudaError_t err = allow_smem<packed_attn_kernel<D, KT, NWG>>();
   if (err != cudaSuccess) return err;

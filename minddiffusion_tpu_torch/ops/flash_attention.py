@@ -76,34 +76,42 @@ def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def ring_stages(c: int, d: int, rows: int, key_tile: int) -> int:
-    """K / V stages of the attention core's ring (ceil(DK / 64) + ceil(D / 64)
-    64-column boxes of a key tile each, DK = D rounded up to 16) that fit
-    beside a rows x C q / o tile, at most 8; under 2, the CTA does not fit."""
-    dk = -(-d // 16) * 16
-    stage = (-(-dk // 64) + -(-d // 64)) * key_tile * 128
+def ring_stages(c: int, d: int, rows: int, key_tile: int, stage: "int | None" = None) -> int:
+    """Stages of the attention core's ring that fit beside a rows x C q / o
+    tile, at most 8; under 2, the CTA does not fit. A stage is `stage`
+    bytes, K1's by default: a K and a V tile, ceil(DK / 64) + ceil(D / 64)
+    64-column boxes of a key tile (DK = D rounded up to 16)."""
+    if stage is None:
+        dk = -(-d // 16) * 16
+        stage = (-(-dk // 64) + -(-d // 64)) * key_tile * 128
     return min(MAX_STAGES, (SMEM_MAX - SMEM_SLACK - -(-c // 64) * rows * 128) // stage)
 
 
-def _tile_plan(nq: int, c: int, d: int) -> "tuple[int, int, int]":
+def _tile_plan(nq: int, c: int, d: int, stage: "int | None",
+               max_rows: int) -> "tuple[int, int, int]":
     """(rows, keys a tile, stages) of the attention core's CTA over C columns
-    at head dim d."""
+    at head dim d, at most `max_rows` rows."""
     if d == 64 and c <= 448 and nq >= 2048:
         rows = 192
     elif d in (40, 64, 80) and c <= 640:
         rows = 128
     else:
         rows = 64
+    rows = min(rows, max_rows)
     key_tile = 32 if d == 160 else 64
-    return rows, key_tile, ring_stages(c, d, rows, key_tile)
+    return rows, key_tile, ring_stages(c, d, rows, key_tile, stage)
 
 
 @functools.lru_cache(maxsize=None)
-def packed_plan(nq: int, c: int, heads: int, batch: int = 1,
-                sms: int = H100_SMS) -> "tuple[int, int, int, int] | None":
+def packed_plan(nq: int, c: int, heads: int, batch: int = 1, sms: int = H100_SMS,
+                stage: "int | None" = None,
+                max_rows: int = 192) -> "tuple[int, int, int, int] | None":
     """(q rows of a CTA, keys of a tile, ring stages, head groups) of K1's
     launch at (B, Nq, C, heads) on a card of `sms` SMs, or None where the
-    kernel takes no such shape.
+    kernel takes no such shape; with `stage` (and `max_rows`), of another
+    kernel on the same core at D 64 whose ring stages are `stage` bytes
+    (K12's modes, the ones kernels) and whose CTAs take at most `max_rows`
+    rows.
 
     D 512 runs its own kernel, one head only: 64 rows, 64 keys, one stage.
     Else the attention core (csrc/attn_core.cuh) holds a q / o tile of
@@ -124,7 +132,7 @@ def packed_plan(nq: int, c: int, heads: int, batch: int = 1,
     for groups in range(1, heads + 1):
         if heads % groups or (groups > 1 and (c // groups) % 64):
             continue
-        rows, key_tile, stages = _tile_plan(nq, c // groups, d)
+        rows, key_tile, stages = _tile_plan(nq, c // groups, d, stage, max_rows)
         if stages < 2:
             continue
         plan = (rows, key_tile, stages, groups)

@@ -149,6 +149,26 @@ def test_hold_scale_sees_every_row_of_the_raw_exp_modes(name):
     assert (err > 2e-2 * scale).any(-1)[off].all()
 
 
+def test_bf16s_rounding_bound_sees_only_scores_at_a_midpoint():
+    """The bound is 0 for a row whose scores are all far from a bf16
+    rounding midpoint, and for a row with a score on one it is at least how
+    far the output moves when that score rounds the other way."""
+    q = torch.zeros(1, 2, 64)
+    k = torch.zeros(1, 64, 64)
+    q[0, 0, 0] = 1.00390625      # s = 1.00390625: the midpoint of bf16 1.0 and 1.0078125
+    q[0, 1, 0] = 1.0             # s = 1.0 or 0: bf16 values, far from any midpoint
+    k[0, 0, 0] = 1.0
+    v = torch.zeros(1, 64, 64)
+    v[0, 0] = 1.0                # key 0's value row: the output follows p_0 / l
+    bound = ad.bf16s_rounding_bound(q, k, v, 1)
+    assert torch.equal(bound[0, 1], torch.zeros(64))
+    # p_0 = exp of either bf16 neighbour, rounded to bf16; the 63 other keys give 1
+    p_lo, p_hi = (torch.exp(torch.tensor(x, dtype=torch.bfloat16)).float()
+                  for x in (1.0, 1.0078125))
+    moved = p_hi / (p_hi + 63) - p_lo / (p_lo + 63)   # o of row 0, column 0, either way
+    assert (bound[0, 0] >= moved * (1 - 1e-3)).all()
+
+
 def test_wrapper_refusals_on_the_cpu():
     q = torch.zeros(1, 64, 128)
     with pytest.raises(ValueError, match="mode"):

@@ -19,7 +19,7 @@ from minddiffusion_tpu.ops.flash_attention import flash_attention_packed as jax_
 from minddiffusion_tpu.ops.winograd import conv3x3_winograd as jax_winograd
 from minddiffusion_tpu.ops.winograd import transform_weights as jax_transform
 from minddiffusion_tpu_torch.models.layers import gn_affine_from_sums, timestep_embedding
-from minddiffusion_tpu_torch.ops import attention, flash_attention, winograd
+from minddiffusion_tpu_torch.ops import attention, attn_diag, attn_variants, flash_attention, winograd
 
 ATOL = 1e-4
 
@@ -105,6 +105,47 @@ def test_packed_plan_at_the_kernel_sites(b, nq, c, heads, plan):
     for nk in (1, 77, nq + 128):   # any Nk: the keys past it are TMA's zero fill
         k = torch.empty(b, nk, c, dtype=torch.bfloat16, device="meta")
         assert flash_attention.kernel_supports(q, k, heads) == (plan is not None)
+
+
+def _core_plan_fits(plan, c: int, stage: int) -> None:
+    """A plan of a kernel on the attention core at D 64 fits a block's
+    shared memory with at least two stages."""
+    rows, stages, groups = plan
+    assert 2 <= stages <= flash_attention.MAX_STAGES and rows in (64, 128, 192)
+    assert (flash_attention.SMEM_SLACK + c // groups // 64 * rows * 128 + stages * stage
+            <= flash_attention.SMEM_MAX)
+
+
+@pytest.mark.parametrize("mode,b,n,c,heads,plan", [
+    ("full", 16, 4096, 320, 5, (192, 6, 1)),        # ds1: K1's plan
+    ("qk", 16, 4096, 320, 5, (192, 8, 1)),          # no V read: stages of a K tile
+    ("fp32pv", 16, 4096, 320, 5, (128, 6, 1)),      # K and the fp32 V^T tile: 24 KB; 128 rows
+    ("exp", 16, 1024, 640, 10, (128, 8, 1)),        # ds2
+    ("bf16s", 16, 1024, 640, 10, (128, 4, 1)),
+    ("nosm", 16, 256, 1280, 20, (128, 8, 4)),       # ds4: 4 head groups, 128 CTAs
+    ("slice", 2, 3200, 704, 11, (64, 8, 1)),        # the 64-row tier
+    ("expslice", 2, 2048, 320, 5, (192, 8, 5)),     # 22 CTAs -> 5 groups
+])
+def test_diag_plan_at_the_ds_sites(mode, b, n, c, heads, plan):
+    """K12's launch plan (rows, stages, head groups): K1's at D 64, its
+    stages sized for the mode's ring stage."""
+    assert attn_diag.diag_plan(mode, b, n, c, heads) == plan
+    stage = 8192 * (1 if mode in ("qk", "exp", "slice", "expslice")
+                    else 3 if mode == "fp32pv" else 2)
+    _core_plan_fits(plan, c, stage)
+
+
+@pytest.mark.parametrize("b,nq,c,heads,plan", [
+    (16, 4096, 320, 5, (192, 4, 1)),     # ds1
+    (16, 1024, 640, 10, (128, 2, 1)),    # ds2: the 160 KB q tile leaves two 24 KB stages
+    (16, 256, 1280, 20, (128, 6, 4)),    # K11's ds4: 64 CTAs of 64 rows -> 4 head groups
+    (2, 3199, 704, 11, (64, 5, 1)),      # the 64-row tier
+    (2, 2049, 320, 5, (192, 8, 5)),     # 22 CTAs -> 5 head groups
+])
+def test_ones_plan_at_the_ds_sites(b, nq, c, heads, plan):
+    """The ones kernel's launch plan: K1's at D 64, stages of 24 KB."""
+    assert attn_variants.ones_plan(b, nq, c, heads) == plan
+    _core_plan_fits(plan, c, attn_variants.ONES_STAGE)
 
 
 @pytest.mark.parametrize("gn", [True, False])
