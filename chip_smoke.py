@@ -6,9 +6,10 @@ Phases (one line each; any failure raises and exits non-zero):
   0. device details (name, power limit, CUDA, nvcc, triton);
   1. build the ten CUDA sources of the twenty-six kernels from
      minddiffusion_tpu_torch/ops/csrc (K2 and K3 share winograd.cu, K7's
-     two variants conv3x3.cu, K10a-d and K11 attn_variants.cu, K12's ten
-     modes and bf16s's packed-exp instantiation attn_diag.cu), one nvcc
-     each, all at once;
+     two variants conv3x3.cu, K8 winograd43.cu, K10a-d and K11
+     attn_variants.cu, K12's ten modes and bf16s's packed-exp instantiation
+     attn_diag.cu; the wgmma kernels include csrc/hopper.cuh, the attention
+     kernels csrc/attn_core.cuh too), one nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes and every head width (D 40, 64, 80, 160, 512), ragged Nq and
      Nk, beside F.scaled_dot_product_attention on the same tensors (the
@@ -69,12 +70,20 @@ Phases (one line each; any failure raises and exits non-zero):
  21. the implicit-GEMM conv kernel K7, v1 and v2, vs their plain versions at
      bench_conv.py's UNet and VAE shapes, v2 also with its fused GN-affine +
      SiLU prologue and residual, beside cuDNN's conv (the unfused chain for
-     the fused case);
+     the fused case), with each case's plan (box, BN, warpgroups, stages,
+     CTAs, waves), the GEMM's (and the prologue pass's) device ms by
+     torch.profiler and its TFLOP/s; then `scripts/ptxas_report.py
+     conv3x3`, whose SASS must show wgmma in every GEMM instantiation and
+     no mma.sync in the file;
  22. the Winograd F(4x4, 3x3) kernel K8 vs its plain version at the UNet's
      32^2 x 640 site and the VAE decoder's shapes, its error against the
-     direct conv apart, beside cuDNN's conv; its gradient (direct-conv
-     backward) vs autograd through the plain version. No path launches K7
-     or K8 (the JAX package has none);
+     direct conv apart, beside cuDNN's conv, with its plan (tiles, channels,
+     stages, CTAs, waves) and the device ms of its three launches (U^T, the
+     input transform, the fused kernel);
+     its gradient (direct-conv backward) vs autograd through the plain
+     version; then `scripts/ptxas_report.py winograd43` (wgmma in the fused
+     kernel, no mma.sync). No path launches K7 or K8 (the JAX package has
+     none);
  23. GLIDE training at full width, fp32 master weights / bf16 compute: TG1
      the base at 64 px batch 8, TG2 the super-res at 256 px batch 2 (s/step,
      img/s, peak memory, launches per step, every tensor and the EMA moved),
@@ -1659,6 +1668,7 @@ def phase21(gen: torch.Generator, table: dict) -> None:
     + residual). No path launches K7 (the JAX package has none)."""
     from minddiffusion_tpu_torch.ops import conv3x3 as cv
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, h, w, c in CONV_CASES + FUSED_CONV_CASES:
         x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
         kern = (torch.randn(3, 3, c, c, generator=gen, device="cuda")
@@ -1690,30 +1700,55 @@ def phase21(gen: torch.Generator, table: dict) -> None:
                      lambda: cv.conv3x3_pallas_plain(x, kern, bias), cudnn, 0.0),
                     ("conv3x3_gemm", lambda: cv.conv3x3_gemm(x, kern, bias),
                      lambda: cv.conv3x3_gemm_plain(x, kern, bias), cudnn, 0.0)]
+        plan = cv.conv3x3_plan(b, h, w, c, c)
         timed = {}
         for name, kernel_fn, plain_fn, library_fn, extra in runs:
             ref = plain_fn()
             got = kernel_fn()
             torch.cuda.synchronize()
             assert torch.isfinite(got.float()).all(), (name, label)
+            assert cv.last_ctas["conv3x3"] == plan.ctas, (label, cv.last_ctas, plan)
             abs_err, err = errors(got, ref)
             del ref
             # v1 and v2 with no prologue are one launch of one kernel: timed once
             if not timed:
-                timed = dict(ms=cuda_ms(kernel_fn), library_ms=cuda_ms(library_fn))
-            ms, library_ms = timed["ms"], timed["library_ms"]
+                timed = dict(ms=cuda_ms(kernel_fn), library_ms=cuda_ms(library_fn),
+                             device_ms=device_ms(kernel_fn, "conv_gemm_kernel"))
+                if extra:   # the prologue's elementwise pass, apart
+                    timed["prologue_ms"] = device_ms(kernel_fn, "prologue_kernel")
+            ms, library_ms, dev_ms = timed["ms"], timed["library_ms"], timed["device_ms"]
             plain_ms = cuda_ms(plain_fn, runs=3)
             bound_ms, bound_by = conv_bound(b, h, w, c, c, flops, extra)
+            resident = 2 if plan.wgs == 1 else 1
             log(f"[phase 21] {name} {label} B={b} {h}x{w} {c}->{c} max_abs_err={abs_err:.3e} "
                 f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"{'unfused_chain' if extra else 'cudnn_conv'}_ms={library_ms:.4f} "
-                f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={flops / ms / 1e9:.1f}")
+                f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={flops / ms / 1e9:.1f} "
+                f"plan: box={plan.tw}x{plan.th} bn={plan.bn} warpgroups={plan.wgs} "
+                f"stages={plan.a_stages}+{plan.b_stages} ctas={plan.ctas} "
+                f"waves={plan.ctas / (sms * resident):.2f} "
+                f"gemm_device_ms={fmt_ms(dev_ms)} "
+                + (f"prologue_device_ms={fmt_ms(timed['prologue_ms'])} " if extra else "")
+                + f"gemm_device_tflops="
+                f"{'n/a' if dev_ms is None else f'{flops / dev_ms / 1e9:.1f}'}")
             assert err <= REL_TOL, (name, label, err)
             table[name]["cases"].append(
                 dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
-                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     device_ms=dev_ms, plan=dict(plan._asdict())))
         del x, kern, x_cl, w_cl
         torch.cuda.empty_cache()
+    hold_conv_sass("conv3x3", "conv_gemm_kernel", "phase 21")
+
+
+def hold_conv_sass(source: str, gemm: str, phase: str) -> None:
+    """`scripts/ptxas_report.py <source>`: every instantiation of the GEMM
+    kernel `gemm` runs wgmma (HGMMA) and no kernel of the file mma.sync
+    (HMMA); registers and spills are printed with the report."""
+    hold_wgmma_sass(source, (gemm,), phase)
+    total = re.search(rf"== {source}\.cu: SASS lines with HGMMA (\d+), HMMA (\d+)$",
+                      SASS_REPORTS[source], re.M)
+    assert total and int(total.group(2)) == 0, (source, total and total.group(0))
 
 
 WINO43_CASES = [  # (label, B, H, W, C_in, C_out)
@@ -1735,6 +1770,7 @@ def phase22(gen: torch.Generator, table: dict) -> None:
     VAE shape. No path launches K8 (the JAX package has none)."""
     from minddiffusion_tpu_torch.ops import winograd43 as w43
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, h, w, ci, co in WINO43_CASES:
         x = torch.randn(b, h, w, ci, generator=gen, device="cuda").to(torch.bfloat16)
         kern = torch.randn(3, 3, ci, co, generator=gen, device="cuda") * (9 * ci) ** -0.5
@@ -1751,21 +1787,40 @@ def phase22(gen: torch.Generator, table: dict) -> None:
         _, direct_err = errors(got, direct)
         direct_l2 = ((got.float() - direct).norm() / direct.norm()).item()
         del direct
-        ms = cuda_ms(lambda: w43.conv3x3_winograd43(x, kern, bias, u))
+        plan = w43.wino43_plan(b, h, w, ci, co)
+        assert w43.last_ctas["winograd43"] == plan["ctas"], (label, w43.last_ctas, plan)
+
+        def kernel_fn():
+            return w43.conv3x3_winograd43(x, kern, bias, u)
+
+        ms = cuda_ms(kernel_fn)
+        dev = {k: device_ms(kernel_fn, k)
+               for k in ("transpose_u_kernel", "wino43_input_kernel", "wino43_fused_kernel")}
+        dev_ms = None if None in dev.values() else sum(dev.values())
         plain_ms = cuda_ms(lambda: w43.conv3x3_winograd43_plain(x, kern, bias, u), runs=3)
         library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, bias16, padding=1))
         p = b * (h // 4) * (w // 4)
-        bound_ms, bound_by = bound(2.0 * 36 * p * ci * co,
+        wino_flops, direct_flops = 2.0 * 36 * p * ci * co, 2.0 * b * h * w * 9 * ci * co
+        bound_ms, bound_by = bound(wino_flops,
                                    2.0 * b * h * w * (ci + co) + 2.0 * 36 * ci * co + 4.0 * co)
+        fused = dev["wino43_fused_kernel"]
         log(f"[phase 22] winograd43 {label} B={b} {h}x{w} {ci}->{co} max_abs_err={abs_err:.3e} "
             f"rel_err={err:.3e} vs_direct_fp32: max_rel={direct_err:.3e} rel_l2={direct_l2:.3e} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} cudnn_conv_ms={library_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"plan: tiles={plan['tiles']} channels={plan['channels']} "
+            f"stages={plan['stages']} ctas={plan['ctas']} "
+            f"waves={plan['ctas'] / sms:.2f} input_items={plan['in_items']} "
+            f"u_transpose_device_ms={fmt_ms(dev['transpose_u_kernel'])} "
+            f"input_device_ms={fmt_ms(dev['wino43_input_kernel'])} "
+            f"fused_device_ms={fmt_ms(fused)} products_tflops="
+            f"{'n/a' if fused is None else f'{wino_flops / fused / 1e9:.1f}'} "
+            f"direct_conv_equivalent_tflops={direct_flops / ms / 1e9:.1f}")
         assert err <= REL_TOL, (label, err)
         table["winograd43"]["cases"].append(
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 direct_conv_rel_l2=direct_l2))
+                 direct_conv_rel_l2=direct_l2, device_ms=dev_ms, plan=plan))
         del x, x_cl, w_cl, u
         torch.cuda.empty_cache()
     b, h, w, ci, co = WINO43_GRAD_CASE
@@ -1786,6 +1841,7 @@ def phase22(gen: torch.Generator, table: dict) -> None:
     assert max(rels) <= 5e-2, rels
     del x, kern, grads
     torch.cuda.empty_cache()
+    hold_conv_sass("winograd43", "wino43_fused_kernel", "phase 22")
 
 
 # GLIDE training (phases 23, 24), launches per step counted from the same

@@ -73,6 +73,18 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
+def on_device(device):
+    """A context that makes `device` the current CUDA device for a launch;
+    a no-op (none of torch.cuda.device's calls) when it already is."""
+    import contextlib
+
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

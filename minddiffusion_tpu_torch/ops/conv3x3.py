@@ -13,17 +13,20 @@ Ports of benchmarks/research/conv3x3.py, NHWC activations, HWIO weights
 `groupnorm_affine_fold` gives the (scale, shift) that folds a GroupNorm into
 v2's prologue, as in the JAX module.
 
-Both wrappers launch the one kernel of csrc/conv3x3.cu on CUDA tensors
+Both wrappers launch the one GEMM kernel of csrc/conv3x3.cu on CUDA tensors
 (bf16 x, C_in and C_out multiples of 8; v1 is its case with no prologue,
-no residual and bf16 out) and raise on inputs it does not take; on CPU tensors
-they run their plain versions. The TPU tiling options (`block_rows`,
-`block_cout`, `interpret`) do not change the result and have no
-counterpart here. The weights go to the kernel as (9, C_out, C_in) bf16.
+no residual and bf16 out; a prologue runs first as an elementwise pass
+into a scratch image) on the block plan `conv3x3_plan` gives, and raise on
+inputs it does not take; on CPU tensors they run their plain versions. The
+TPU tiling options (`block_rows`, `block_cout`, `interpret`) do not change
+the result and have no counterpart here. The weights go to the kernel as
+they are laid out, HWIO, in bf16.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +35,67 @@ from minddiffusion_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "mdt_conv3x3_gemm": [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2,
 }
+SMEM_MAX = 232448        # a block's shared memory on the H100
+SMEM_SLACK = 1024        # the rings' alignment
+CLUSTER = 2              # CTAs along the pixels that share each weight tile
+MAX_A_STAGES, MAX_B_STAGES = 3, 8
+
+
+class ConvPlan(NamedTuple):
+    """K7's launch: boxes of tw x th pixels of one image (64 per consumer
+    warpgroup), bn output channels, wgs consumer warpgroups, a_stages pixel
+    boxes and b_stages weight tiles in the rings, `ctas` CTAs (pairs along
+    the pixels), `smem` bytes of shared memory a CTA."""
+    tw: int
+    th: int
+    bn: int
+    wgs: int
+    a_stages: int
+    b_stages: int
+    ctas: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv3x3_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> ConvPlan:
+    """The block plan of csrc/conv3x3.cu at (B, H, W, C_in, C_out). The
+    block comes from H, W and C_out alone (B only counts the CTAs), and the
+    kernel sums each output in the same order in any block, so a batch
+    row's result does not depend on the batch:
+      * boxes 16 pixels wide (W > 8) or 8, 64 / tw rows a consumer
+        warpgroup; a pixel box, loaded once for each dx, serves its three
+        dy taps, so its rows (tw x 128 bytes) are whole swizzle atoms;
+      * BN: of 128 and 256 the width that pads C_out least (ties: 256);
+        128 where H*W <= 256, which doubles the CTAs of the UNet's 16^2 and
+        8^2 levels;
+      * one consumer warpgroup where H*W <= 64 (two CTAs an SM), else two;
+      * three pixel boxes in their ring, and as many weight tiles as the
+        rest of shared memory holds (per CTA: all of it, or half with one
+        consumer warpgroup), at most MAX_B_STAGES.
+    The CTAs run in pairs (clusters) along the pixels: each loads half of
+    every weight tile for both, so the grid is padded to whole pairs."""
+    if min(b, h, w, c_in, c_out) < 1:
+        raise ValueError(f"no plan for an empty conv {(b, h, w, c_in, c_out)}")
+    tw = 16 if w > 8 else 8
+    wgs = 1 if h * w <= 64 else 2
+    th = 64 * wgs // tw
+    if h * w <= 256:
+        bn = 128
+    else:
+        bn = min((256, 128), key=lambda n: -(-c_out // n) * n)
+    a_bytes, b_bytes = tw * (th + 2) * 128, bn * 128
+    budget = (SMEM_MAX if wgs == 2 else SMEM_MAX // 2 - 1024) - SMEM_SLACK
+    a_stages = MAX_A_STAGES
+    b_stages = min(MAX_B_STAGES, (budget - a_stages * (a_bytes + 16)) // (b_bytes + 16))
+    boxes = -(-w // tw) * -(-h // th) * b
+    ctas = -(-boxes // CLUSTER) * CLUSTER * -(-c_out // bn)
+    smem = SMEM_SLACK + a_stages * (a_bytes + 16) + b_stages * (b_bytes + 16)
+    return ConvPlan(tw, th, bn, wgs, a_stages, b_stages, ctas, smem)
+
+
+last_ctas = {"conv3x3": 0}   # the GEMM's CTAs at the last launch, as the launcher reports
 
 
 def _bias(bias: Optional[torch.Tensor], c_out: int, device) -> torch.Tensor:
@@ -116,8 +178,8 @@ def groupnorm_affine_fold(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tens
 
 def _kernel_operands(x: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor]):
-    """Check what the kernel takes; the weights as (9, C_out, C_in) bf16 and
-    the bias as fp32, both contiguous on x's device."""
+    """Check what the kernel takes; the HWIO weights and the bias as the
+    kernel reads them: bf16 and fp32, contiguous on x's device."""
     b, h, w, c_in = x.shape
     c_out = kernel.shape[-1]
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -130,8 +192,7 @@ def _kernel_operands(x: torch.Tensor, kernel: torch.Tensor,
     for name, t in (("kernel", kernel), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-    wt = kernel.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9, c_out, c_in).contiguous()
-    return wt, _bias(bias, c_out, x.device).contiguous()
+    return kernel.to(torch.bfloat16).contiguous(), _bias(bias, c_out, x.device).contiguous()
 
 
 def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
@@ -143,7 +204,7 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
     with no prologue, no residual and bf16 out)."""
     b, h, w, c_in = x.shape
     wt, bias32 = _kernel_operands(x, kernel, bias)
-    c_out = wt.shape[1]
+    c_out = wt.shape[-1]
     out_dtype = out_dtype or x.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel writes bf16 or fp32, not {out_dtype}")
@@ -159,16 +220,22 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
             raise ValueError(f"residual must be contiguous bf16 {(b, h, w, c_out)} on "
                              f"{x.device}")
     out = torch.empty((b, h, w, c_out), dtype=out_dtype, device=x.device)
+    # the prologue's image, which the GEMM then reads
+    pbuf = torch.empty_like(x) if scale is not None or silu_prologue else None
+    plan = conv3x3_plan(b, h, w, c_in, c_out)
+    ctas = ctypes.c_int(0)
     lib = _build.load("conv3x3", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.mdt_conv3x3_gemm(
             x.data_ptr(), wt.data_ptr(), bias32.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), int(silu_prologue),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.float32), b, h, w, c_in, c_out,
-            torch.cuda.current_stream().cuda_stream)
+            int(out_dtype == torch.float32), None if pbuf is None else pbuf.data_ptr(),
+            b, h, w, c_in, c_out, plan.tw, plan.bn, plan.wgs, plan.a_stages, plan.b_stages,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(ctas))
     _build.check(err, "conv3x3 launch")
+    last_ctas["conv3x3"] = ctas.value
     return out
 
 

@@ -1,10 +1,11 @@
 // Shared Hopper (sm_90a) pieces of the wgmma kernels (winograd.cu,
-// attn_variants.cu, attn_diag.cu, packed_attention.cu and their attention
-// core, attn_core.cuh): shared-memory addresses, mbarriers (a wait that
-// traps instead of hanging), TMA tile loads and their tensor maps (bf16 or
-// fp32), clusters, named barriers, and the warpgroup products, wgmma, with
-// A from shared memory or from registers and B K-major or MN-major (bf16),
-// or A from registers and B K-major (TF32).
+// winograd43.cu, conv3x3.cu, attn_variants.cu, attn_diag.cu,
+// packed_attention.cu and their attention core, attn_core.cuh):
+// shared-memory addresses, mbarriers (a wait that traps instead of
+// hanging), TMA tile loads and their tensor maps (3-d bf16 or fp32, and
+// 4-d NHWC images), clusters, named barriers, and the warpgroup products,
+// wgmma, with A from shared memory or from registers and B K-major or
+// MN-major (bf16), or A from registers and B K-major (TF32).
 //
 // Tiles are 64 bf16 columns (128 bytes) wide and 128-byte swizzled by TMA:
 // byte (r, 16-byte chunk j) of a 1024-byte-aligned tile sits at
@@ -76,6 +77,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 4-d TMA box (coordinates innermost first; any of them may be negative
+// or past the end: those elements read as zero) into shared memory,
+// counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -176,6 +189,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -272,6 +286,87 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 16, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 16, shared), bf16;
+// TB as in wgmma_ss_m64n64k16. scale_d == 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "%8, %9, p, 1, 1, 0, %11;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 256, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 256, shared), bf16;
+// TB as in wgmma_ss_m64n64k16. scale_d == 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// The SS product at width N (the implicit-GEMM conv's BN).
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_m64n128k16<TB>(d, da, db, scale_d);
+  } else {
+    static_assert(N == 256, "no wgmma_ss at this width");
+    wgmma_ss_m64n256k16<TB>(d, da, db, scale_d);
+  }
+}
+
 // d (64 x 64, fp32) (+)= A (64 x 16, bf16 in registers: the m16n8k16 A
 // fragment of each warp's 16 rows) B (16 x 64, shared); TB as above.
 template <int TB>
@@ -295,6 +390,25 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 16, fp32) (+)= A (64 x 16, bf16 in registers) B (16 x 16, shared); TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
@@ -522,6 +636,26 @@ bool make_map(CUtensorMap* map, const void* base, long long planes, long long ro
   return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An NHWC bf16 image (bsz, h, w, c), c % 8 == 0, as a 4-d tensor map
+// (c, w, h, bsz) whose box is 64 channels (128 bytes, swizzled unless
+// `swizzle` says otherwise) x box_w x box_h x box_b: a box's rows are its
+// pixels, w fastest. Out-of-range elements, negative coordinates included,
+// read as zero.
+bool make_map_nhwc(CUtensorMap* map, const void* base, long long bsz, long long h, long long w,
+                   long long c, int box_w, int box_h, int box_b,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)bsz};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)(w * c) * 2,
+                                 (cuuint64_t)(h * w * c) * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_w, (cuuint32_t)box_h, (cuuint32_t)box_b};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

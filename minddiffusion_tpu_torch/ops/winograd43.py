@@ -16,8 +16,10 @@ No model path calls either, as in the JAX package.
   A^T = [[1,1,1,1,1,0], [0,1,-1,2,-2,0], [0,1,1,4,4,0], [0,1,-1,8,-8,1]]
 
 The wrapper launches csrc/winograd43.cu on CUDA tensors (bf16 x, C_in and
-C_out multiples of 8) and raises on inputs it does not take; on CPU tensors
-it runs the plain version.
+C_out multiples of 8): U^T and the input transform into bf16 scratch,
+then one fused kernel for the 36 products and the output transform. It
+raises on inputs the kernel does not take; on CPU tensors it runs the
+plain version.
 """
 from __future__ import annotations
 
@@ -33,8 +35,16 @@ from minddiffusion_tpu_torch.ops.winograd import _direct_conv
 
 _SIGNATURES = {
     "mdt_winograd43_conv3x3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 2,
 }
+# csrc/winograd43.cu's constants: a CTA of the fused kernel takes TILES tiles
+# x CHANNELS output channels through a ring of STAGES stages of 64 input
+# channels (V: TILES rows, U^T: CHANNELS rows); the input transform works in
+# items of IN_TILES tiles x 64 channels
+TILES, CHANNELS, STAGES, CHUNK = 64, 32, 16, 64
+IN_TILES = (2, 4)
+SMEM_MAX = 232448
+last_ctas = {"winograd43": 0}   # the fused kernel's CTAs at the last launch
 _G = ((1 / 4, 0, 0), (-1 / 6, -1 / 6, -1 / 6), (-1 / 6, 1 / 6, -1 / 6),
       (1 / 24, 1 / 12, 1 / 6), (1 / 24, -1 / 12, 1 / 6), (0, 0, 1))
 
@@ -61,6 +71,22 @@ def wino43_wins(h: int, w: int, c_in: int, c_out: int) -> bool:
     return (h % 4 == 0 and w % 4 == 0 and min(h, w) >= 128
             and c_in % 128 == 0 and c_out % 128 == 0
             and weight_bytes <= 40 * 1024 * 1024)
+
+
+def wino43_plan(b: int, h: int, w: int, c_in: int, c_out: int) -> dict:
+    """K8's launch at (B, H, W, C_in, C_out): the fused kernel's block
+    (tiles x channels, stages, shared memory a CTA, CTAs) and the input
+    transform's work items (IN_TILES tiles x 64 channels each; its CTAs,
+    two an SM, walk them); V's channels padded to cp, a multiple of 64.
+    The block does not depend on B, so a batch row's result does not
+    depend on the batch."""
+    p = b * (h // 4) * (w // 4)
+    cp = -(-c_in // CHUNK) * CHUNK
+    stage = CHUNK * (TILES + CHANNELS) * 2
+    in_items = -(-(w // 4) // IN_TILES[1]) * b * -(-(h // 4) // IN_TILES[0]) * (cp // CHUNK)
+    return dict(tiles=TILES, channels=CHANNELS, stages=STAGES,
+                smem=STAGES * (stage + 16) + 1024, ctas=-(-p // TILES) * -(-c_out // CHANNELS),
+                in_items=in_items, cp=cp)
 
 
 def _combine6(g):
@@ -129,21 +155,28 @@ def conv3x3_winograd43(x: torch.Tensor, kernel: torch.Tensor,
                          f"x {tuple(x.shape)}, kernel {tuple(kernel.shape)}")
     if u is None:
         u = transform_weights43(kernel)
+    if tuple(u.shape) != (36, c_in, c_out):
+        raise ValueError(f"u must be (36, C_in, C_out) = {(36, c_in, c_out)}, got "
+                         f"{tuple(u.shape)}")
     u = u.to(torch.bfloat16).contiguous()
     bias = (torch.zeros(c_out, device=x.device) if bias is None else bias.float()).contiguous()
     for name, t in (("u", u), ("bias", bias)):
         if t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
     p = b * (h // 4) * (w // 4)
-    vbuf = torch.empty((36, p, c_in), dtype=torch.bfloat16, device=x.device)
-    mbuf = torch.empty((36, p, c_out), dtype=torch.float32, device=x.device)
+    cp = -(-c_in // CHUNK) * CHUNK    # V's channels: the kernel zeroes those past C_in
+    vbuf = torch.empty((36, p, cp), dtype=torch.bfloat16, device=x.device)
+    ut = torch.empty((36, c_out, c_in), dtype=torch.bfloat16, device=x.device)  # U^T, K-major
     out = torch.empty((b, h, w, c_out), dtype=torch.bfloat16, device=x.device)
+    ctas = ctypes.c_int(0)
     lib = _build.load("winograd43", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.mdt_winograd43_conv3x3(
-            x.data_ptr(), u.data_ptr(), bias.data_ptr(), vbuf.data_ptr(), mbuf.data_ptr(),
-            out.data_ptr(), b, h, w, c_in, c_out, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), u.data_ptr(), ut.data_ptr(), bias.data_ptr(), vbuf.data_ptr(),
+            out.data_ptr(), b, h, w, c_in, c_out, torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(ctas))
     _build.check(err, "winograd43 launch")
+    last_ctas["winograd43"] = ctas.value
     conv3x3_winograd43.launches += 1
     return out
 

@@ -5,6 +5,8 @@ one. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import itertools
+
 import pytest
 import torch
 
@@ -503,36 +505,81 @@ def test_fused_ff_raises_on_what_the_kernel_does_not_take(cuda):
         fused_ff.fused_ln_geglu_ff(x, *w)
 
 
+def _conv_options(rand, b, h, w, ci, co):
+    """K7 v2's keyword arguments at every combination of prologue (none,
+    affine, SiLU, both), residual and fp32 out."""
+    scale, shift = 1.0 + 0.1 * rand(b, ci), 0.2 * rand(b, ci)
+    res = rand(b, h, w, co).to(torch.bfloat16)
+    out = []
+    for affine, silu, residual, f32 in itertools.product((False, True), repeat=4):
+        kw = dict(silu_prologue=silu)
+        if affine:
+            kw.update(prologue_scale=scale, prologue_shift=shift)
+        if residual:
+            kw["residual"] = res
+        if f32:
+            kw["out_dtype"] = torch.float32
+        out.append(kw)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,ci,co", [(2, 16, 16, 64, 64), (1, 13, 21, 40, 136),
-                                         (2, 8, 8, 256, 128), (1, 35, 70, 8, 16)])
+                                         (2, 8, 8, 256, 128), (1, 35, 70, 8, 16),
+                                         # W 8 and 4 (boxes across images), C 72,
+                                         # and ~3 waves of CTAs
+                                         (3, 8, 8, 72, 136), (5, 4, 4, 64, 64),
+                                         (2, 12, 4, 136, 72), (4, 64, 64, 128, 384)])
 def test_conv3x3_kernels_match_plain(cuda, b, h, w, ci, co):
     """K7 v1 and v2 (plain and with every fusion, bf16 and fp32 out) on
-    ragged tiles (H, W not multiples of 8, 16) and C not multiples of 32."""
+    ragged tiles (H, W not multiples of the box) and C not multiples of 64,
+    on `conv3x3_plan`'s grid."""
     g = torch.Generator(device=cuda).manual_seed(13)
     rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
     x = rand(b, h, w, ci).to(torch.bfloat16)
     kern, bias = (rand(3, 3, ci, co) * (9 * ci) ** -0.5).to(torch.bfloat16), 0.1 * rand(co)
-    cases = [(conv3x3.conv3x3_pallas, conv3x3.conv3x3_pallas_plain, {}),
-             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain, {}),
-             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain,
-              dict(prologue_scale=1.0 + 0.1 * rand(b, ci), prologue_shift=0.2 * rand(b, ci),
-                   silu_prologue=True, residual=rand(b, h, w, co).to(torch.bfloat16))),
-             (conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain,
-              dict(silu_prologue=True, out_dtype=torch.float32))]
+    cases = [(conv3x3.conv3x3_pallas, conv3x3.conv3x3_pallas_plain, {})]
+    cases += [(conv3x3.conv3x3_gemm, conv3x3.conv3x3_gemm_plain, kw)
+              for kw in _conv_options(rand, b, h, w, ci, co)]
     for fn, plain, kw in cases:
         before = fn.launches
         got = fn(x, kern, bias, **kw)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
+        assert conv3x3.last_ctas["conv3x3"] == conv3x3.conv3x3_plan(b, h, w, ci, co).ctas
         ref = plain(x, kern, bias, **kw)
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert torch.isfinite(got.float()).all() and rel_err(got, ref) <= 2e-2, kw.keys()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(8, 8, 256), (4, 4, 64), (13, 21, 72)])
+def test_conv3x3_batch_row_is_bytewise_the_same_alone(cuda, h, w, c):
+    """A batch row's K7 output, prologue and residual included, is the same
+    bytes alone as inside a batch of 4 (no block reads B)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    x = rand(4, h, w, c).to(torch.bfloat16)
+    kern, bias = (rand(3, 3, c, c) * (9 * c) ** -0.5).to(torch.bfloat16), 0.1 * rand(c)
+    kw = dict(prologue_scale=1.0 + 0.1 * rand(4, c), prologue_shift=0.2 * rand(4, c),
+              silu_prologue=True, residual=rand(4, h, w, c).to(torch.bfloat16))
+    batch = conv3x3.conv3x3_gemm(x, kern, bias, **kw)
+    alone = conv3x3.conv3x3_gemm(x[2:3].contiguous(), kern, bias,
+                                 **{k: v[2:3].contiguous() if torch.is_tensor(v) else v
+                                    for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(batch[2:3], alone)
+    assert torch.equal(conv3x3.conv3x3_pallas(x, kern, bias)[1:2],
+                       conv3x3.conv3x3_pallas(x[1:2].contiguous(), kern, bias))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,ci,co", [(2, 16, 16, 64, 64), (1, 12, 20, 40, 136),
-                                         (2, 32, 32, 128, 256)])
+                                         (2, 32, 32, 128, 256),
+                                         # P not a multiple of 64 tiles, C_in not of
+                                         # 64, C_out not of 32 or of the cluster's 128
+                                         (3, 36, 44, 72, 200), (1, 4, 4, 8, 8),
+                                         (2, 8, 12, 200, 72), (2, 64, 64, 256, 160)])
 def test_winograd43_kernel_matches_plain(cuda, b, h, w, ci, co):
     g = torch.Generator(device=cuda).manual_seed(14)
     x = torch.randn(b, h, w, ci, generator=g, device=cuda).to(torch.bfloat16)
@@ -542,9 +589,29 @@ def test_winograd43_kernel_matches_plain(cuda, b, h, w, ci, co):
     got = winograd43.conv3x3_winograd43(x, kern, bias)
     torch.cuda.synchronize()
     assert winograd43.conv3x3_winograd43.launches == before + 1
+    assert (winograd43.last_ctas["winograd43"]
+            == winograd43.wino43_plan(b, h, w, ci, co)["ctas"])
     ref = winograd43.conv3x3_winograd43_plain(x, kern, bias)
     assert got.shape == ref.shape and torch.isfinite(got.float()).all()
     assert rel_err(got, ref) <= 2e-2
+    # the hoisted U gives the same bytes
+    u = winograd43.transform_weights43(kern)
+    assert torch.equal(winograd43.conv3x3_winograd43(x, kern, bias, u), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(16, 16, 64), (12, 20, 136)])
+def test_winograd43_batch_row_is_bytewise_the_same_alone(cuda, h, w, c):
+    """A batch row's K8 output is the same bytes alone as inside a batch of
+    4 (the block is a constant; no split-K)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn(4, h, w, c, generator=g, device=cuda).to(torch.bfloat16)
+    kern = torch.randn(3, 3, c, c, generator=g, device=cuda) * (9 * c) ** -0.5
+    bias = 0.1 * torch.randn(c, generator=g, device=cuda)
+    batch = winograd43.conv3x3_winograd43(x, kern, bias)
+    alone = winograd43.conv3x3_winograd43(x[3:4].contiguous(), kern, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(batch[3:4], alone)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,8 @@ from minddiffusion_tpu.ops.flash_attention import flash_attention_packed as jax_
 from minddiffusion_tpu.ops.winograd import conv3x3_winograd as jax_winograd
 from minddiffusion_tpu.ops.winograd import transform_weights as jax_transform
 from minddiffusion_tpu_torch.models.layers import gn_affine_from_sums, timestep_embedding
-from minddiffusion_tpu_torch.ops import attention, attn_diag, attn_variants, flash_attention, winograd
+from minddiffusion_tpu_torch.ops import (attention, attn_diag, attn_variants, conv3x3,
+                                         flash_attention, winograd, winograd43)
 
 ATOL = 1e-4
 
@@ -146,6 +147,66 @@ def test_ones_plan_at_the_ds_sites(b, nq, c, heads, plan):
     """The ones kernel's launch plan: K1's at D 64, stages of 24 KB."""
     assert attn_variants.ones_plan(b, nq, c, heads) == plan
     _core_plan_fits(plan, c, attn_variants.ONES_STAGE)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,plan", [
+    # chip_smoke phase 21's shapes (C -> C): (tw, th, bn, wgs, a_stages, b_stages)
+    (16, 64, 64, 320, 320, (16, 8, 128, 2, 3, 8)),     # 320: 128 pads it to 384, 256 to 512
+    (16, 32, 32, 640, 640, (16, 8, 128, 2, 3, 8)),
+    (16, 16, 16, 1280, 1280, (16, 8, 128, 2, 3, 8)),   # H*W <= 256: BN 128, 320 CTAs
+    (16, 8, 8, 1280, 1280, (8, 8, 128, 1, 3, 5)),      # one warpgroup: 160 CTAs, two an SM
+    (8, 64, 64, 512, 512, (16, 8, 256, 2, 3, 5)),
+    (8, 128, 128, 512, 512, (16, 8, 256, 2, 3, 5)),
+    (8, 256, 256, 256, 256, (16, 8, 256, 2, 3, 5)),
+    (8, 512, 512, 128, 128, (16, 8, 128, 2, 3, 8)),
+    # the card tests' ragged shapes: W 4 in boxes 8 wide
+    (1, 13, 21, 40, 136, (16, 8, 256, 2, 3, 5)),
+    (1, 35, 70, 8, 16, (16, 8, 128, 2, 3, 8)),
+    (5, 4, 4, 64, 64, (8, 8, 128, 1, 3, 5)),
+    (3, 8, 8, 256, 128, (8, 8, 128, 1, 3, 5)),
+])
+def test_conv3x3_plan_at_the_phase_shapes(b, h, w, ci, co, plan):
+    """K7's block plan: 64 pixels a consumer warpgroup in boxes whose pixel
+    rows are whole 1024-byte swizzle atoms, shared memory within a block's
+    (half of it with one warpgroup, two CTAs an SM), the CTAs of the grid
+    in whole pairs, and the same block at every batch size."""
+    got = conv3x3.conv3x3_plan(b, h, w, ci, co)
+    assert tuple(got[:6]) == plan
+    tw, th, bn, wgs, a_stages, b_stages = plan
+    assert tw * th == 64 * wgs and tw * 128 % 1024 == 0
+    assert got.smem == (conv3x3.SMEM_SLACK + a_stages * (tw * (th + 2) * 128 + 16)
+                        + b_stages * (bn * 128 + 16))
+    assert got.smem <= conv3x3.SMEM_MAX // (3 - wgs) and a_stages >= 2 and b_stages >= 2
+    pairs = -(-(-(-w // tw) * -(-h // th) * b) // 2)
+    assert got.ctas == 2 * pairs * -(-co // bn)
+    for other in (1, 4, 16):
+        assert tuple(conv3x3.conv3x3_plan(other, h, w, ci, co)[:6]) == plan
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,ctas", [
+    # chip_smoke phase 22's shapes: 64 tiles x 32 channels a CTA
+    (16, 32, 32, 640, 640, 16 * 20),
+    (8, 128, 128, 512, 512, 128 * 16),
+    (8, 256, 256, 256, 256, 512 * 8),
+    (8, 512, 512, 128, 128, 2048 * 4),
+    (8, 256, 256, 512, 256, 512 * 8),
+    # ragged P, C_in and C_out: 15 and 297 tiles, 5 and 7 channel blocks
+    (1, 12, 20, 40, 136, 1 * 5),
+    (3, 36, 44, 72, 200, 5 * 7),
+])
+def test_wino43_plan_at_the_phase_shapes(b, h, w, ci, co, ctas):
+    """K8's fused kernel: its ring fits a block's shared memory, its CTAs
+    cover P and C_out, its block is a constant, and V's channels are padded
+    to whole 64-channel stages."""
+    plan = winograd43.wino43_plan(b, h, w, ci, co)
+    assert plan["ctas"] == ctas and plan["smem"] <= winograd43.SMEM_MAX
+    tile_blocks = -(-(b * (h // 4) * (w // 4)) // plan["tiles"])
+    channel_blocks = plan["ctas"] // tile_blocks
+    assert channel_blocks * tile_blocks == plan["ctas"]
+    assert 0 <= channel_blocks * plan["channels"] - co < plan["channels"]
+    assert (plan["tiles"], plan["channels"], plan["stages"]) == (64, 32, 16)
+    assert plan["cp"] == -(-ci // 64) * 64
+    assert plan["in_items"] == -(-(w // 4) // 4) * b * -(-(h // 4) // 2) * plan["cp"] // 64
 
 
 @pytest.mark.parametrize("gn", [True, False])
