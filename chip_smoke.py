@@ -9,7 +9,8 @@ Phases (one line each; any failure raises and exits non-zero):
      two variants conv3x3.cu, K8 winograd43.cu, K10a-d and K11
      attn_variants.cu, K12's ten modes and bf16s's packed-exp instantiation
      attn_diag.cu; the wgmma kernels include csrc/hopper.cuh, the attention
-     kernels csrc/attn_core.cuh too), one nvcc each, all at once;
+     kernels csrc/attn_core.cuh too, K1's and K4's csrc/attn512.cuh), one
+     nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes and every head width (D 40, 64, 80, 160, 512), ragged Nq and
      Nk, beside F.scaled_dot_product_attention on the same tensors (the
@@ -25,8 +26,12 @@ Phases (one line each; any failure raises and exits non-zero):
   5. the main path: SD2 txt2img 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
      seeded random weights, with kernel launch counts;
   6. head-split attention kernel (K4) vs its plain version at the 768x1024
-     and 768^2 sites, a ragged, a static-shift and a logit > 88 case,
-     beside F.scaled_dot_product_attention;
+     and 768^2 sites, ragged cases at every head width, a static-shift and
+     a logit > 88 case, beside F.scaled_dot_product_attention and K1 on the
+     packed view of the same tensors, with each launch's plan, CTAs, waves
+     and device ms; then `scripts/ptxas_report.py flash_attention`, whose
+     SASS must show wgmma and no mma.sync, and ptxas no spills, in every K4
+     kernel, each at K1's registers;
   7. txt2img 768x1024, DDIM-50, CFG 9.0, batch 4: rerun bytes, s/batch,
      launch counts;
   8. img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4, launch counts;
@@ -272,23 +277,33 @@ def attention_bound(b: int, heads: int, nq: int, nk: int, d: int,
 
 def sdpa_ms(q, k, v, scale: float) -> "tuple[float, str]":
     """F.scaled_dot_product_attention on (B, H, N, D) views of the kernel's
-    inputs: the ms of PyTorch's default choice and the backend it took (the
-    first that runs, in the dispatcher's order)."""
+    inputs, called as a user calls it: the ms of the dispatcher's own choice
+    and the backend it took (`torch._fused_sdp_choice`; on torch 2.11 with
+    an H100, cuDNN at D 64, the memory-efficient kernel at D 512)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        backend = SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, False, scale=scale))
+        name = backend.name.lower()
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        name = "not named"
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), runs=5), name
+
+
+def sdpa_flash_ms(q, k, v, scale: float) -> "float | None":
+    """The same call forced onto SDPA's flash backend (FlashAttention-2, the
+    yardstick of earlier records), or None where it refuses the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
-        backend = getattr(SDPBackend, name)
-        try:
-            with sdpa_kernel(backend), warnings.catch_warnings():
-                warnings.simplefilter("ignore")   # why each refused backend was refused
-                F.scaled_dot_product_attention(q, k, v, scale=scale)
-                torch.cuda.synchronize()
-        except RuntimeError:
-            continue
-        with sdpa_kernel(backend):
-            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                           runs=5), name.lower()
-    raise RuntimeError("no SDPA backend ran")
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION), warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # why the backend refused
+            F.scaled_dot_product_attention(q, k, v, scale=scale)
+            torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), runs=5)
 
 
 def run(cmd) -> str:
@@ -677,17 +692,35 @@ FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
 ]
 
 
+# The kernels of flash_attention.cu (K1's on the same core, with the static
+# shift), whose SASS must hold wgmma and no mma.sync and whose ptxas report
+# no spills; each at the registers of K1's kernel of the same template
+# arguments (phase 2's report)
+K4_KERNELS = {"flash_attn_kernel": "packed_attn_kernel",
+              "flash_attn512_kernel": "packed_attn512_kernel"}
+
+
 def phase6(gen: torch.Generator, table: dict) -> None:
+    """K4 against its plain version at every case, beside SDPA (the
+    dispatcher's choice, and its flash backend) and K1 on the
+    packed (B, N, H D) view of the same tensors (K1 at the same `exact`:
+    raw exp where K4 shifts), the bound, the plan, the CTAs and waves as the
+    C entry reports them and the device ms (`torch.profiler`); then the
+    SASS, spills and registers of its kernels."""
     from minddiffusion_tpu_torch.ops import flash_attention as fa
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, b, nq, nk, heads, d, exact, qmul in FLASH_CASES:
         q, k, v = (torch.randn(b, n, heads, d, generator=gen, device="cuda")
                    .to(torch.bfloat16) for n in (nq, nk, nk))
         q = (q.float() * qmul).to(torch.bfloat16)
         scale = d ** -0.5
         ref = fa.flash_attention_plain(q, k, v, scale, exact)
+        fa.last_ctas.clear()
         got = fa.flash_attention(q, k, v, scale, exact)
         torch.cuda.synchronize()
+        ctas = fa.last_ctas["mdt_flash_attention"]
+        rows, key_tile, stages, groups = fa.flash_plan(nq, heads, d, b, sms)
         max_logit = None
         if qmul != 1.0:
             s = torch.matmul(q[0, :, 0].float() * scale, k[0, :, 0].float().T)
@@ -696,22 +729,41 @@ def phase6(gen: torch.Generator, table: dict) -> None:
         abs_err, err = errors(got, ref)
         assert torch.isfinite(got.float()).all(), label
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale, exact))
+        kname = "flash_attn512_kernel" if d == 512 else "flash_attn_kernel"
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, scale, exact), kname)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale, exact), runs=3)
+        packed = [t.view(b, -1, heads * d) for t in (q, k, v)]
+        k1_ms = cuda_ms(lambda: fa.flash_attention_packed(*packed, heads, scale, exact))
         heads_view = [t.transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
+        flash_ms = sdpa_flash_ms(*heads_view, scale)
         bound_ms, bound_by, term = attention_bound(b, heads, nq, nk, d)
         log(f"[phase 6] flash {label} B={b} Nq={nq} Nk={nk} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
-            f"bound_ms={bound_ms:.4f} ({term})"
+            f"device_ms={fmt_ms(dev_ms)} plain_ms={plain_ms:.4f} k1_packed_ms={k1_ms:.4f} "
+            f"sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
+            f"sdpa_flash_ms={fmt_ms(flash_ms)} bound_ms={bound_ms:.4f} ({term}) "
+            f"rows={rows} key_tile={key_tile} stages={stages} groups={groups} ctas={ctas} "
+            f"waves={ctas / sms:.2f}"
             + (f" max_logit={max_logit:.1f}" if max_logit else ""))
         assert err <= REL_TOL, (label, err)
+        assert ctas == b * -(-nq // rows) * groups, (label, ctas)
         table["flash_attention"]["cases"].append(
-            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 bound_term=term))
-        del q, k, v, ref, got
+            dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, k1_ms=k1_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, bound_term=term, sdpa_backend=backend,
+                 sdpa_flash_ms=flash_ms, ctas=ctas, waves=ctas / sms))
+        del q, k, v, ref, got, packed, heads_view
     torch.cuda.empty_cache()
+    hold_wgmma_sass("flash_attention", tuple(K4_KERNELS), "phase 6", spills=True)
+    k1 = kernel_registers(SASS_REPORTS["packed_attention"])
+    k4 = kernel_registers(SASS_REPORTS["flash_attention"])
+    for (kname, args), regs in sorted(k4.items()):
+        want = k1.get((K4_KERNELS[kname], args))
+        log(f"[phase 6] flash_attention.cu {kname}{list(args)} registers {regs} "
+            f"(K1's {want})")
+        assert regs == want, (kname, args, regs, want)
+    assert {kname for kname, _ in k4} == set(K4_KERNELS), k4
 
 
 # Launches of the slice's paths, counted by hand from UNetConfig.sd2 and
@@ -2992,7 +3044,7 @@ def main() -> int:
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
         for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds", "gemm_ms",
-                    "attn_ms", "device_ms"):
+                    "attn_ms", "device_ms", "sdpa_backend", "sdpa_flash_ms"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

@@ -2,13 +2,16 @@
 // K10d / K10c's `attn_out_kernel` (attn_variants.cu, with the Wo epilogue),
 // K1's `packed_attn_kernel` (packed_attention.cu, no epilogue), the ones
 // kernels of K10a / K10b / K11 (`attn_ones_kernel`, attn_variants.cu) and
-// K12's ablation modes (`diag_kernel`, attn_diag.cu), on packed (B, N, C =
-// heads * D) bf16 tensors, head h being the column slice [D h, D h + D).
-// Templated on the head (`Head<D, KT, DV, MODE, K_MN>`: head dim, keys per
-// tile, PV width, what the loop computes, K's layout); at D 64, KT 64 in
-// mode ATTN (K10d) every piece below reduces to the code it had as K10d's
-// own, and each other mode cuts, changes or widens a stage of that loop at
-// compile time (`if constexpr`), with no branch added to it at run time.
+// K12's ablation modes (`diag_kernel`, attn_diag.cu) and K4's head-split
+// kernel (`flash_attn_kernel`, flash_attention.cu, whose contiguous (B, N,
+// H, D) tensors are these bytes), on packed (B, N, C = heads * D) bf16
+// tensors, head h being the column slice [D h, D h + D). Templated on the
+// head (`Head<D, KT, DV, MODE, K_MN, SHIFT>`: head dim, keys per tile, PV
+// width, what the loop computes, K's layout, exact=0's shift); at D 64, KT
+// 64 in mode ATTN (K10d) every piece below reduces to the code it had as
+// K10d's own, and each other mode cuts, changes or widens a stage of that
+// loop at compile time (`if constexpr`), with no branch added to it at run
+// time.
 //
 //  * The q / o tile: rows x the CTA's columns (all of C, or in K1 a group
 //    of heads' columns) in bf16, as boxes of 64 columns (128 bytes, TMA's
@@ -45,8 +48,9 @@
 //
 // Softmax, as the TPU kernels have it: exact=1 the running row max (alpha
 // rescales o and l at each new max), exact=0 raw exp(s) with no shift
-// (fp32 overflow above logit ~88); P rounded to bf16 before PV, l the fp32
-// sum of the unrounded P.
+// (fp32 overflow above logit ~88), or with SHIFT (K4, ONES) the static
+// shift exp(s - 20); P rounded to bf16 before PV, l the fp32 sum of the
+// unrounded P.
 #pragma once
 
 #include "hopper.cuh"
@@ -135,14 +139,17 @@ enum CoreMode {
   BF16S_EX2,   // the same with the packed exp (bf16s_ex2)
   FP32PV,      // exp(s) V, P in fp32 on TF32 wgmma, not normalised (fp32pv)
 };
-constexpr float FAST_SHIFT = 20.0f;   // ONES' static shift at exact=0 (`_FAST_SHIFT`)
+constexpr float FAST_SHIFT = 20.0f;   // the static shift at exact=0 (`_FAST_SHIFT`)
 
 // One head's shapes: head dim D, KT keys a tile, PV DV columns wide, the
-// mode, and K_MN: K given transposed, (B, C, N).
-template <int D_, int KT_, int DV_ = D_, int MODE_ = ATTN, bool K_MN_ = false>
+// mode, K_MN: K given transposed, (B, C, N), and SHIFT_: exact=0 takes
+// exp(s - FAST_SHIFT) in mode ATTN (K4), as it always does in ONES.
+template <int D_, int KT_, int DV_ = D_, int MODE_ = ATTN, bool K_MN_ = false,
+          bool SHIFT_ = false>
 struct Head {
   static constexpr int D = D_, KT = KT_, DV = DV_, MODE = MODE_;
   static constexpr bool K_MN = K_MN_;
+  static constexpr bool SHIFT = MODE == ONES || SHIFT_;   // neg starts at -FAST_SHIFT log2 e
   static constexpr bool TF32_PV = MODE == FP32PV;
   static constexpr bool USES_V = MODE == ATTN || MODE == ONES || MODE == NOSM ||
                                  MODE == BF16S || MODE == BF16S_EX2 || TF32_PV;
@@ -160,6 +167,7 @@ struct Head {
   static_assert((!K_MN && !TF32_PV) || (D == 64 && KT == 64 && DV == 64),
                 "K^T and V^T tiles: one 64 x 64 head tile");
   static_assert(MODE != ONES || DV == D + 8, "the ones column: 8 columns past the head");
+  static_assert(!SHIFT_ || MODE == ATTN, "the static shift: a softmax mode");
 };
 
 // A ring of stages in shared memory, each a K and a V slot with a full and
@@ -302,9 +310,9 @@ __device__ __forceinline__ int fp32pv_key(int p) {
 
 // Softmax numerators of one tile in place, rows g and g + 8 of the warp's
 // 16: keys from `valid` on are masked; exact: exp(s - running max), alpha
-// the factor for the sums so far; otherwise raw exp(s) (ONES: exp(s -
-// FAST_SHIFT)). l = l alpha + the fp32 row sums of the unrounded numerators
-// (this thread's columns). The cut modes: ROWSUM_S sums s itself, SLICE_S,
+// the factor for the sums so far; otherwise raw exp(s) (SHIFT: exp(s -
+// FAST_SHIFT), a constant of the head, not a branch). l = l alpha + the
+// fp32 row sums of the unrounded numerators (this thread's columns). The cut modes: ROWSUM_S sums s itself, SLICE_S,
 // NOSM and BF16S leave s as it is (BF16S takes its exps as it packs P),
 // SLICE_EXP and FP32PV take raw exp(s) and no sum.
 template <class H>
@@ -328,7 +336,7 @@ __device__ __forceinline__ void numerators(float (&s)[H::SR], float (&m)[2], flo
 #pragma unroll
       for (int e = 0; e < 4; ++e) sum[e >> 1] += s[4 * j + e];
   } else if constexpr (MODE != SLICE_S && MODE != NOSM && MODE != BF16S && MODE != BF16S_EX2) {
-    if constexpr (MODE == ONES) neg[0] = neg[1] = -FAST_SHIFT * LOG2E;
+    if constexpr (H::SHIFT) neg[0] = neg[1] = -FAST_SHIFT * LOG2E;
     if constexpr (MODE == ATTN || MODE == ONES) {
       if (exact) {
         float mx[2] = {m[0], m[1]};

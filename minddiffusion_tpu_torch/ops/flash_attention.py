@@ -9,7 +9,8 @@ Ports of minddiffusion_tpu/ops/flash_attention.py:
   * `flash_attention` (`_flash_bhnd` / `_attn_kernel`, K4): the same on
     head-split (B, N, H, D) tensors with any Nq, Nk, in exact (online max)
     or static-shift (exp(s - 20)) softmax. CUDA source
-    csrc/flash_attention.cu.
+    csrc/flash_attention.cu: K1's kernels with the static shift, on the
+    packed view of the same bytes, launched as `flash_plan` says.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises. The launch runs inside a
@@ -38,10 +39,10 @@ _SIGNATURES = {   # ends with the stream and an int* that receives the CTAs laun
     "mdt_packed_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
 }
-last_ctas: dict = {}   # CTAs of the last K1 launch, as its C entry reports them
-_FLASH_SIGNATURES = {
+last_ctas: dict = {}   # CTAs of the last K1 / K4 launch, as its C entry reports them
+_FLASH_SIGNATURES = {   # the same plan arguments, stream and int* as K1's entry
     "mdt_flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
 }
 FAST_SHIFT = 20.0   # static softmax shift of exact_softmax=False (`_FAST_SHIFT`)
 PLAIN_SCORE_BYTES = 4 << 30   # fp32 scores one step of flash_attention_plain holds
@@ -195,12 +196,13 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _PackedAttentionFn.apply(q, k, v, heads, scale, exact)
 
 
-def _packed_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   heads: int, scale: float, exact: bool) -> torch.Tensor:
-    b, nq, c = q.shape
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q (B, Nq, ...), k / v (B, Nk, ...) of q's trailing shape: bf16 on q's
+    CUDA device, contiguous and 16-byte aligned, or raise."""
+    b, nq, *rest = q.shape
     nk = k.shape[1]
-    for name, t, shape in (("q", q, (b, nq, c)), ("k", k, (b, nk, c)),
-                           ("v", v, (b, nk, c))):
+    for name, t, shape in (("q", q, (b, nq, *rest)), ("k", k, (b, nk, *rest)),
+                           ("v", v, (b, nk, *rest))):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
         if t.dtype != torch.bfloat16:
@@ -208,23 +210,38 @@ def _packed_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned {shape}, "
                              f"got {tuple(t.shape)}")
+
+
+def _run(source: str, signatures: dict, q: torch.Tensor, k: torch.Tensor,
+         v: torch.Tensor, *args) -> torch.Tensor:
+    """The one C entry of csrc/<source>.cu on q, k, v into a new output like
+    q: `args` after the four pointers, then the stream and the int* that
+    receives the CTAs launched (kept in `last_ctas`)."""
+    (entry,) = signatures
+    out = torch.empty_like(q)
+    lib = _build.load(source, signatures)
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  *args, stream, ctypes.byref(ctas))
+    _build.check(err, f"{source} launch")
+    last_ctas[entry] = ctas.value
+    return out
+
+
+def _packed_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int, scale: float, exact: bool) -> torch.Tensor:
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    _check_operands(q, k, v)
     plan = packed_plan(nq, c, heads, b, _sms(q.device.index))
     if plan is None or nk < 1:
         raise ValueError(f"kernel takes head dim in {KERNEL_HEAD_DIMS} (D 512 "
                          f"with one head) and Nk >= 1; got C={c}, heads={heads}, "
                          f"Nk={nk}")
-    rows, key_tile, stages, groups = plan
-    out = torch.empty_like(q)
-    lib = _build.load("packed_attention", _SIGNATURES)
-    ctas = ctypes.c_int(0)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mdt_packed_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
-            nk, c, heads, float(scale), int(exact), rows, key_tile, stages,
-            groups, stream, ctypes.byref(ctas))
-    _build.check(err, "packed_attention launch")
-    last_ctas["mdt_packed_attention"] = ctas.value
+    out = _run("packed_attention", _SIGNATURES, q, k, v, b, nq, nk, c, heads, float(scale),
+               int(exact), *plan)
     flash_attention_packed.launches += 1
     return out
 
@@ -263,6 +280,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 FLASH_HEAD_DIMS = (40, 64, 80, 160, 512)
 
 
+@functools.lru_cache(maxsize=None)
+def flash_plan(nq: int, heads: int, d: int, batch: int = 1,
+               sms: int = H100_SMS) -> "tuple[int, int, int, int] | None":
+    """(q rows of a CTA, keys of a tile, ring stages, head groups) of K4's
+    launch at (B, Nq, H, D), or None where the kernel takes no such shape.
+
+    A contiguous (B, N, H, D) tensor is the packed (B, N, H D) one, so at
+    D 40 / 64 / 80 / 160 the plan is K1's (`packed_plan`) at C = H D. At
+    D 512 every head is a group of its own: 64 rows, 64 keys, one stage,
+    `heads` groups (K1's D 512 kernel, one head a CTA)."""
+    if d not in FLASH_HEAD_DIMS or heads < 1 or nq < 1 or batch < 1:
+        return None
+    if d == 512:
+        return 64, 64, 1, heads
+    return packed_plan(nq, heads * d, heads, batch, sms)
+
+
 class _FlashAttentionFn(torch.autograd.Function):
     """K4 forward, einsum-attention backward (JAX `_flash_ad`)."""
 
@@ -292,26 +326,13 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, exact_softmax: bool) -> torch.Tensor:
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    for name, t, shape in (("q", q, (b, nq, h, d)), ("k", k, (b, nk, h, d)),
-                           ("v", v, (b, nk, h, d))):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous, 16-byte aligned {shape}, "
-                             f"got {tuple(t.shape)}")
-    if d not in FLASH_HEAD_DIMS or nq < 1 or nk < 1:
+    _check_operands(q, k, v)
+    plan = flash_plan(nq, h, d, b, _sms(q.device.index))
+    if plan is None or nk < 1:
         raise ValueError(f"kernel takes head dim in {FLASH_HEAD_DIMS} and "
                          f"Nq, Nk >= 1; got D={d}, Nq={nq}, Nk={nk}")
-    out = torch.empty_like(q)
-    lib = _build.load("flash_attention", _FLASH_SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mdt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
-            h, d, float(scale), int(exact_softmax), stream)
-    _build.check(err, "flash_attention launch")
+    out = _run("flash_attention", _FLASH_SIGNATURES, q, k, v, b, nq, nk, h, d, float(scale),
+               int(exact_softmax), *plan)
     flash_attention.launches += 1
     return out
 

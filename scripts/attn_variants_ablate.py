@@ -1,19 +1,21 @@
 """Where the time of the wgmma attention kernels goes: K10d's (`mdt_attn_out`
 in minddiffusion_tpu_torch/ops/csrc/attn_variants.cu), K1's
-(`mdt_packed_attention` in packed_attention.cu), K12's modes (`mdt_diag*`
+(`mdt_packed_attention` in packed_attention.cu), K4's
+(`mdt_flash_attention` in flash_attention.cu), K12's modes (`mdt_diag*`
 in attn_diag.cu) and the ones kernel of K10a / K10b / K11 (`mdt_attn_ones`),
 which share the attention core of csrc/attn_core.cuh. Builds copies of the
 sources with one piece taken out each and times every copy on the card by
 `torch.profiler` (device time only, no host overhead): K10d at the SD2
 UNet's ds1 and ds2 shapes and K11's ds4 one, K1 at ds1 and ds2 (D 64, raw
 exp, as the main path runs them) and at Wukong's D 40 / D 80 and GLIDE's
-sites at each row tier, K12's full, kt_full, bf16s_ex2 and fp32pv at ds1,
+sites at each row tier, K4 at the 768x1024 ds1 and VAE-mid sites (exact),
+K12's full, kt_full, bf16s_ex2 and fp32pv at ds1,
 the ones kernel at ds1, ds2 and ds4. Then times K10c's first launch, the
 projection GEMM (`mdt_qkv_proj`), alone on the device at K10c's ds1 and ds2
 shapes.
 
-    python3 scripts/attn_variants_ablate.py
-    python3 scripts/attn_variants_ablate.py --events [--root DIR]
+    python3 scripts/attn_variants_ablate.py [--k4]
+    python3 scripts/attn_variants_ablate.py --events [--k4] [--root DIR]
 
 Variants (the outputs of all but `full` are wrong by design):
   full         the kernels as they are
@@ -26,11 +28,12 @@ Variants (the outputs of all but `full` are wrong by design):
   tiles_<r>    K1: the full kernel launched with r q rows a CTA in place of
                its plan's (every tier its head dim has)
 `--events` instead times whole calls of the wrappers by CUDA events (the
-wrapper's host time in them, as chip_smoke.py times them): every K12 mode
-at ds1 and the ones kernels at their phase-27 shapes, with the CTAs each
-launched; `--root DIR` imports the package from DIR (another checkout,
-e.g. the parent commit's, built from its own sources), so two commits are
-compared in one call.
+wrapper's host time in them, as chip_smoke.py times them): K4 at its
+768x1024 ds1 and VAE-mid sites (with its device ms beside, and SDPA's),
+every K12 mode at ds1 and the ones kernels at their phase-27 shapes, with
+the CTAs each launched; `--root DIR` imports the package from DIR (another
+checkout, e.g. the parent commit's, built from its own sources), so two
+commits are compared in one call. `--k4`: K4's cases only, in either mode.
 Needs the CUDA toolkit and one card; builds into a temporary directory.
 """
 from __future__ import annotations
@@ -63,9 +66,17 @@ PV_TF32 = ("      wgmma_tf32_rs_m64n64k8(o, p[kk],\n                            
            "accumulate | kk);")
 EPI = "for (int n0 = 0; n0 < c_out; n0 += EPI_N)"
 TIER = "return c <= WIDEST_MAX_C && nq >= WIDEST_MIN_NQ ? 192 : c <= WIDE_MAX_C ? 128 : 64;"
-CORE = "attn_core.cuh"
+# the D 512 CTA's S and PV (attn512.cuh), K1's and K4's
+S512 = ("      wgmma_ss_m64n64k16<0>(s, smem_desc(qtile + off, 16, 1024),\n"
+        "                            smem_desc(kslot + off, 16, 1024), box | kk);")
+PV512 = ("    wgmma_ss_m64n128k16<1>(o0, a, smem_desc(vbox + kk * 2048, H512::BOX, 1024), "
+         "accumulate | kk);\n    if constexpr (WIDE)\n      wgmma_ss_m64n64k16<1>(o1, a, "
+         "smem_desc(vbox + 2 * H512::BOX + kk * 2048, 1024, 1024),\n"
+         "                            accumulate | kk);")
+CORE, CORE512 = "attn_core.cuh", "attn512.cuh"
 NO_EXP = [(CORE, EX2, "  y = x * 0.5f;"), (CORE, EX2_BF16, "    e = bits(hi);")]
-NO_MMA = [(CORE, t, "      ;") for t in (S, S_MN, PV, PV_TF32)]
+NO_MMA = ([(CORE, t, "      ;") for t in (S, S_MN, PV, PV_TF32)]
+          + [(CORE512, t, "      ;") for t in (S512, PV512)])
 VARIANTS = {   # name: [(file, text, its replacement)], the file attn_core.cuh or the source's
     "full": [],
     "no_exp": NO_EXP,
@@ -110,6 +121,13 @@ ONES_CASES = [  # (label, B, N, C, exact, ones_mode): K10a / K11 (1) and K10b (2
     ("ds2_16x1024x640", 16, 1024, 640, False, 2),
     ("ds4_16x256x1280", 16, 256, 1280, True, 1),
 ]
+# K4's sites (chip_smoke.py phase 6), exact as the route runs them:
+# (label, B, N, heads, D)
+K4_CASES = [
+    ("unet_ds1_768x1024", 8, 12288, 5, 64),
+    ("vae_mid_768x1024", 4, 12288, 1, 512),
+    ("vae_mid_768x768", 4, 9216, 1, 512),
+]
 # --events: the ones wrappers' shapes of chip_smoke.py phase 27 (K10a and
 # K10b at ds1 and ds2 raw, K11 at bench_attention.py's three, exact)
 EVENT_ONES = [
@@ -125,11 +143,12 @@ EVENT_ONES = [
 
 def build(tmp: Path, source: str, names, signatures: dict) -> dict:
     """{variant: its library}: each variant's copies of csrc/<source>.cu and
-    attn_core.cuh in a directory of its own (the .cu's quoted include finds
-    the copy first), built in parallel."""
+    of the csrc headers, attn_core.cuh cut, in a directory of its own (the
+    quoted includes find the copies), built in parallel."""
     procs = {}
-    for name in names:
-        texts = {f: (_build.CSRC / f).read_text() for f in (CORE, f"{source}.cu")}
+    for name in names:   # every header copied, so each includes the cut core
+        texts = {f.name: f.read_text() for f in _build.CSRC.glob("*.cuh")}
+        texts[f"{source}.cu"] = (_build.CSRC / f"{source}.cu").read_text()
         for f, old, new in VARIANTS[name]:
             if f not in texts:
                 continue
@@ -141,8 +160,8 @@ def build(tmp: Path, source: str, names, signatures: dict) -> dict:
         for f, text in texts.items():
             (d / f).write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-             str(d / "lib.so"), str(d / f"{source}.cu")], stderr=subprocess.PIPE, text=True)
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / f"{source}.cu")], stderr=subprocess.PIPE, text=True)
     libs = {}
     for name, proc in procs.items():
         if proc.wait() != 0:
@@ -203,11 +222,58 @@ def sdpa_events_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
         return events_ms(lambda: F.scaled_dot_product_attention(*views, scale=scale))
 
 
+def k4_operands(gen: torch.Generator, b: int, n: int, heads: int, d: int):
+    return [torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def k4_events(gen: torch.Generator) -> None:
+    """K4 (`flash_attention`, exact) at K4_CASES through the package under
+    ROOT: a call by CUDA events, its kernel's device ms (any kernel whose
+    name starts `flash_`, the parent's or this tree's) and the CTAs, SDPA on
+    the (B, H, N, D) views beside it as the dispatcher runs it (cuDNN at D
+    64, the memory-efficient kernel at D 512 on torch 2.11)."""
+    import torch.nn.functional as F
+
+    for label, b, n, heads, d in K4_CASES:
+        q, k, v = k4_operands(gen, b, n, heads, d)
+
+        def call():
+            fa.flash_attention(q, k, v, d ** -0.5, True)
+        ms, dev = events_ms(call), device_ms(call, "flash_")
+        ctas = getattr(fa, "last_ctas", {}).get("mdt_flash_attention", "n/a")
+        views = [t.transpose(1, 2) for t in (q, k, v)]
+        sdpa = events_ms(lambda: F.scaled_dot_product_attention(*views, scale=d ** -0.5))
+        print(f"events k4 {label} exact=True ms {ms:.4f} device_ms {dev:.4f} ctas {ctas} "
+              f"sdpa_default_ms {sdpa:.4f}", flush=True)
+        del q, k, v, views
+
+
+def ablate_k4(tmp: Path, gen: torch.Generator) -> None:
+    """CUTS of K4 (flash_attention.cu on the cut core) at K4_CASES, exact,
+    launched on `flash_plan`, device ms each."""
+    libs = build(tmp, "flash_attention", CUTS, fa._FLASH_SIGNATURES)
+    for label, b, n, heads, d in K4_CASES:
+        q, k, v = k4_operands(gen, b, n, heads, d)
+        out = torch.empty_like(q)
+        plan = fa.flash_plan(n, heads, d, b)
+        row = []
+        for cut, lib in libs.items():
+            def call(lib=lib):
+                err = lib.mdt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              out.data_ptr(), b, n, n, heads, d, d ** -0.5, 1,
+                                              *plan, torch.cuda.current_stream().cuda_stream,
+                                              None)
+                _build.check(err, f"k4 {cut}")
+            row.append(f"{cut} {device_ms(call, 'flash_attn'):.4f}")
+        print(f"K4 {label} exact=True plan={plan} device ms: " + ", ".join(row), flush=True)
+        del q, k, v, out
+
+
 def events(gen: torch.Generator) -> None:
     """Every K12 variant at ds1 and the ones wrappers at EVENT_ONES through
     the package under ROOT, by CUDA events, with the CTAs of each launch;
     SDPA flash beside them (at scale 1 for K12's raw scores)."""
-    print(f"events of the package at {ROOT}", flush=True)
     b, n, c = 16, 4096, 320
     q, k, v = (torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
@@ -289,9 +355,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--events" in sys.argv:
-        events(gen)
+        print(f"events of the package at {ROOT}", flush=True)
+        k4_events(gen)
+        if "--k4" not in sys.argv:
+            events(gen)
         return 0
     with tempfile.TemporaryDirectory() as tmp:
+        ablate_k4(Path(tmp), gen)
+        if "--k4" in sys.argv:
+            return 0
         ablate_core_modes(Path(tmp), gen)
         k1_libs = build(Path(tmp), "packed_attention", K1_VARIANTS, fa._SIGNATURES)
         libs = build(Path(tmp), "attn_variants", VARIANTS,

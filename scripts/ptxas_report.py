@@ -2,14 +2,17 @@
 of the port's CUDA sources, and count the tensor-core instructions in its
 SASS, per kernel and in all: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
 
-    python3 scripts/ptxas_report.py winograd [more names]
+    python3 scripts/ptxas_report.py winograd [more names] [--root DIR]
 
-A name is csrc/<name>.cu's, or `packed` for K1's packed_attention.cu. Each
-kernel's line reads "SASS lines with HGMMA n, HMMA m; registers r, spills
-s" (s: the bytes of its spill stores and loads). Compiles
-minddiffusion_tpu_torch/ops/csrc/<name>.cu with the flags of `ops/_build.py`
-plus `-Xptxas -v` into a temporary directory; needs the CUDA toolkit (nvcc,
-cuobjdump), no card.
+A name is csrc/<name>.cu's, or `packed` for K1's packed_attention.cu, or
+`flash` for K4's flash_attention.cu. Each kernel's line reads "SASS lines
+with HGMMA n, HMMA m; registers r, spills s" (s: the bytes of its spill
+stores and loads). Compiles minddiffusion_tpu_torch/ops/csrc/<name>.cu with
+the flags of `ops/_build.py` plus `-Xptxas -v` into a temporary directory;
+`--root DIR` takes the sources of the checkout under DIR instead (e.g. the
+parent commit's, unpacked by `git archive`), so two commits' registers are
+compared with one toolkit. Needs the CUDA toolkit (nvcc, cuobjdump), no
+card.
 """
 from __future__ import annotations
 
@@ -25,22 +28,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from minddiffusion_tpu_torch.ops import _build  # noqa: E402
 
 
-ALIASES = {"packed": "packed_attention"}
+ALIASES = {"packed": "packed_attention", "flash": "flash_attention"}
 
 
-def report(name: str) -> None:
+def report(name: str, csrc: Path = _build.CSRC) -> None:
     name = ALIASES.get(name, name)
     nvcc = _build.nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
         lib = os.path.join(tmp, f"lib{name}.so")
         proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
-                               str(_build.CSRC / f"{name}.cu")],
+                               str(csrc / f"{name}.cu")],
                               capture_output=True, text=True, check=True)
         lines = [ln for ln in proc.stderr.splitlines() if ln.strip()]
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                               check=True).stdout
-    print(f"== {name}.cu: ptxas -v")
+    print(f"== {name}.cu: ptxas -v ({csrc})")
     print("\n".join(lines))
     regs = ptxas_usage(lines)
     for fn, (hgmma, hmma) in sass_counts(sass).items():
@@ -88,5 +91,11 @@ def sass_counts(sass: str) -> dict:
 
 
 if __name__ == "__main__":
-    for n in sys.argv[1:] or ["winograd"]:
-        report(n)
+    args = sys.argv[1:]
+    csrc = _build.CSRC
+    if "--root" in args:
+        i = args.index("--root")
+        csrc = Path(args[i + 1]).resolve() / "minddiffusion_tpu_torch" / "ops" / "csrc"
+        del args[i:i + 2]
+    for n in args or ["winograd"]:
+        report(n, csrc)

@@ -1,0 +1,52 @@
+"""Run phase 6 (K4 at its sites) or phase 7 (txt2img 768x1024) of
+chip_smoke.py alone, from this checkout or another one.
+
+    python3 scripts/smoke_phases.py [--root DIR] 6 7
+
+`--root DIR` imports chip_smoke.py and the package from DIR (e.g. the parent
+commit, unpacked by `git archive` into `checkout/`), so that two commits are
+compared in one call: parent, change, change, parent. Phase 6 first builds
+every kernel (phase 1) and holds K1's SASS (as phase 2 does), which its
+register check reads. Needs one card; prints chip_smoke's own lines.
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+args = sys.argv[1:]
+if "--root" in args:
+    i = args.index("--root")
+    ROOT = Path(args[i + 1]).resolve()
+    del args[i:i + 2]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("smoke_phases: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"chip_smoke phases {args} from {ROOT}", flush=True)
+    chip_smoke.phase0()
+    for phase in args:
+        if phase == "6":
+            chip_smoke.phase1()
+            chip_smoke.hold_wgmma_sass("packed_attention", chip_smoke.K1_KERNELS, "phase 2",
+                                       spills=True)
+            chip_smoke.phase6(torch.Generator(device="cuda").manual_seed(0),
+                              {"flash_attention": dict(cases=[])})
+        elif phase == "7":
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            chip_smoke.phase7(chip_smoke.sd2_models(gen))
+        else:
+            raise SystemExit(f"smoke_phases: phase {phase} is not 6 or 7")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

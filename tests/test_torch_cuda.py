@@ -47,17 +47,54 @@ def test_packed_attention_kernel_matches_plain(cuda, nq, c, heads, exact):
     (2, 1024, 1024, 8, 40), (1, 300, 640, 8, 80), (1, 300, 640, 8, 160),
     (2, 77, 130, 3, 40), (1, 1, 1, 2, 160)])
 def test_flash_attention_kernel_matches_plain(cuda, b, nq, nk, heads, d, exact):
-    """K4 on (B, N, H, D), including Nq and Nk that are not tile multiples."""
+    """K4 on (B, N, H, D), including Nq and Nk that are not tile multiples:
+    one launch of the CTAs its plan implies."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn(b, n, heads, d, generator=g, device=cuda).to(torch.bfloat16)
                for n in (nq, nk, nk))
     scale = d ** -0.5
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, _, _, groups = flash_attention.flash_plan(nq, heads, d, b, sms)
     ref = flash_attention.flash_attention_plain(q, k, v, scale, exact)
+    before = flash_attention.flash_attention.launches
     got = flash_attention.flash_attention(q, k, v, scale, exact)
     torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert flash_attention.last_ctas["mdt_flash_attention"] == b * -(-nq // rows) * groups
     assert torch.isfinite(got.float()).all()
     err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,heads,d", [
+    (2, 1000, 1128, 5, 64), (1, 4096, 4096, 5, 64), (2, 300, 77, 8, 40), (2, 1000, 1128, 8, 80),
+    (1, 77, 300, 8, 160), (2, 300, 640, 1, 512)])
+def test_flash_attention_exact_is_k1_on_the_packed_view(cuda, b, nq, nk, heads, d):
+    """In exact mode K4 runs K1's code on the same bytes (its static shift
+    is dead there): its output equals K1's on the (B, N, H D) view, bit for
+    bit; at exact=0 the two differ only by K4's exp(s - 20)."""
+    g = torch.Generator(device=cuda).manual_seed(d + nq)
+    q, k, v = (torch.randn(b, n, heads, d, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    scale = d ** -0.5
+    got = flash_attention.flash_attention(q, k, v, scale, True)
+    packed = flash_attention.flash_attention_packed(
+        *(t.view(b, -1, heads * d) for t in (q, k, v)), heads, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(b, nq, heads * d), packed)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_shapes_without_a_plan(cuda):
+    """D 48 is no width of the kernel, and fp32 no dtype of it: both raise
+    on the card instead of running anything else."""
+    odd = torch.zeros(1, 256, 8, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(odd, odd, odd, 48 ** -0.5)
+    wide = torch.zeros(1, 256, 1, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention.flash_attention(wide, wide, wide, 0.125)
 
 
 @pytest.mark.cuda

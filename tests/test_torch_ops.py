@@ -108,6 +108,39 @@ def test_packed_plan_at_the_kernel_sites(b, nq, c, heads, plan):
         assert flash_attention.kernel_supports(q, k, heads) == (plan is not None)
 
 
+@pytest.mark.parametrize("b,nq,heads,d,plan", [
+    (8, 12288, 5, 64, (192, 64, 6, 1)),    # SD2 768x1024 ds1: K1's 192-row tier
+    (4, 9216, 1, 512, (64, 64, 1, 1)),     # the VAE mids at 768^2 (img2img: both)
+    (4, 12288, 1, 512, (64, 64, 1, 1)),    # and at 768x1024
+    (8, 16384, 8, 40, (128, 64, 8, 1)),    # Wukong 1024^2 ds1, D 40
+    (2, 300, 8, 80, (128, 64, 4, 2)),      # ragged D 80: two groups of 4 heads
+    (2, 300, 8, 160, (64, 32, 7, 4)),      # ragged D 160: 32-key tiles, 4 groups
+    (2, 300, 1, 512, (64, 64, 1, 1)),      # ragged D 512
+    (1, 65, 2, 512, (64, 64, 1, 2)),       # D 512, two heads: a CTA a head
+    (1, 256, 8, 48, None),                 # D 48 is no width of the kernel
+])
+def test_flash_plan_at_the_k4_sites(b, nq, heads, d, plan):
+    """K4's launch plan (rows, keys a tile, stages, head groups) at each
+    site the route sends to it and the ragged widths: K1's plan on the
+    packed view of the same bytes at D 40-160, a head a CTA at D 512; every
+    plan's q / o tile and ring (or D 512's tile, stage and P slots) fit a
+    block's 232448 bytes of shared memory."""
+    assert flash_attention.flash_plan(nq, heads, d, b) == plan
+    if plan is None:
+        return
+    rows, kt, stages, groups = plan
+    if d == 512:
+        smem = 1024 + rows * 512 * 2 + 2 * kt * 512 * 2 + 2 * rows * kt * 2 + 3 * 256 + 9 * 8
+        assert groups == heads and stages == 1
+    else:
+        assert plan == flash_attention.packed_plan(nq, heads * d, heads, b)
+        c = heads * d // groups
+        stage = (-(-(-(-d // 16) * 16) // 64) + -(-d // 64)) * kt * 128
+        smem = flash_attention.SMEM_SLACK + -(-c // 64) * rows * 128 + stages * stage
+        assert 2 <= stages <= flash_attention.MAX_STAGES and (groups == 1 or c % 64 == 0)
+    assert smem <= flash_attention.SMEM_MAX == 232448
+
+
 def _core_plan_fits(plan, c: int, stage: int) -> None:
     """A plan of a kernel on the attention core at D 64 fits a block's
     shared memory with at least two stages."""
