@@ -61,9 +61,13 @@ Phases (one line each; any failure raises and exits non-zero):
      autograd through the plain version; and (run
      inside phase 19) vs GroupNorm32's sums on ResBlock inputs of a step;
  18. the fused LN -> GEGLU -> FF kernel (K5) vs its plain version at the SD2
-     transformer widths, beside the unfused bf16 chain, and vs the port's
-     own `x + ff(norm3(x))` on inputs caught in an SD2 UNet eval. Neither K5
-     nor K6 has a path (the JAX package removed their hooks);
+     transformer widths on the plan its `ff_plan` gives, with the plan,
+     CUDA-event and profiler device ms, beside the unfused bf16 chain,
+     bitwise reruns, and vs the port's own `x +
+     ff(norm3(x))` on inputs caught in an SD2 UNet eval; then
+     `scripts/ptxas_report.py fused_ff`: HGMMA in every product kernel, no
+     HMMA and no spills in any. Neither K5 nor K6 has a path (the JAX
+     package removed their hooks);
  19. SD2 finetune 512^2, batch 3, fp32 master weights / bf16 compute: a
      warm step, 3 timed steps (s/step, img/s, peak memory) with launch
      counts (none in the backward), and the gradient check: the UNet
@@ -1362,16 +1366,28 @@ def ff_bound(b: int, n: int, c: int, f: int) -> "tuple[float, str]":
                  2.0 * (2 * b * n * c + 3 * c * f + 2 * f + 3 * c))
 
 
+def ff_device_ms(call, regime: str) -> "float | None":
+    """Device ms of one K5 call: the sum over its plan's kernels of each
+    one's mean device time a launch (torch.profiler)."""
+    from minddiffusion_tpu_torch.ops import fused_ff
+
+    parts = [device_ms(call, k) for k in fused_ff.KERNELS[regime]]
+    return None if None in parts else sum(parts)
+
+
 def phase18(gen: torch.Generator, table: dict) -> None:
     """K5 (fused LN -> GEGLU -> FF -> residual) against its plain version at
     the SD2 transformer widths (CFG batch 16, 512^2: ds1 4096 tokens x 320,
-    ds2 1024 x 640, ds4 256 x 1280; F = 4C), beside the unfused bf16 chain
-    (no single library call computes it); then against the port's own
-    `x + ff(norm3(x))` on the ds1, ds2 and ds4 inputs caught in one full-width
-    SD2 UNet eval. No path launches K5 (the JAX package retired its hook)."""
+    ds2 1024 x 640, ds4 256 x 1280; F = 4C) on the plan `ff_plan` gives,
+    beside the unfused bf16 chain (no single library call computes it);
+    reruns bitwise; then against the port's own `x + ff(norm3(x))` on the
+    ds1, ds2 and ds4 inputs caught in one full-width SD2 UNet eval; then
+    ptxas and the SASS of every kernel of csrc/fused_ff.cu. No path launches
+    K5 (the JAX package retired its hook)."""
     from minddiffusion_tpu_torch.ops import fused_ff
 
     rec = table["fused_ff"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.inference_mode():
         for label, b, n, c in FF_CASES:
             f = 4 * c
@@ -1383,10 +1399,6 @@ def phase18(gen: torch.Generator, table: dict) -> None:
                     (0.1 * rand(c)).to(torch.bfloat16))
             x, ln_w, ln_b, w1, b1, w2, b2 = args
             ref = fused_ff.fused_ff_plain(*args)
-            got = fused_ff.fused_ln_geglu_ff(*args)
-            torch.cuda.synchronize()
-            assert torch.isfinite(got.float()).all() and got.shape == x.shape, label
-            abs_err, err = errors(got, ref)
             ln_wb, ln_bb = ln_w.to(torch.bfloat16), ln_b.to(torch.bfloat16)
 
             def unfused():
@@ -1395,20 +1407,32 @@ def phase18(gen: torch.Generator, table: dict) -> None:
                 return x + F.linear(a * F.gelu(gate, approximate="tanh"), w2, b2)
 
             _, err_chain = errors(unfused(), ref)
-            ms = cuda_ms(lambda: fused_ff.fused_ln_geglu_ff(*args))
             plain_ms = cuda_ms(lambda: fused_ff.fused_ff_plain(*args), runs=5)
             unfused_ms = cuda_ms(unfused)
             bound_ms, bound_by = ff_bound(b, n, c, f)
-            log(f"[phase 18] fused_ff {label} F={f} max_abs_err={abs_err:.3e} "
+            plan = fused_ff.ff_plan(b * n, c, f, sms)
+            call = lambda: fused_ff.fused_ln_geglu_ff(*args)  # noqa: E731
+            got = call()
+            again = call()
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all() and got.shape == x.shape, label
+            assert torch.equal(got, again), (label, "reruns differ")
+            abs_err, err = errors(got, ref)
+            ms = cuda_ms(call)
+            dev_ms = ff_device_ms(call, plan.regime)
+            log(f"[phase 18] fused_ff {label} F={f} plan={tuple(plan)}")
+            log(f"[phase 18] fused_ff {label} regime {plan.regime} max_abs_err={abs_err:.3e} "
                 f"rel_err={err:.3e} unfused_vs_plain={err_chain:.3e} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} unfused_chain_ms={unfused_ms:.4f} "
-                f"bound_ms={bound_ms:.4f} ({bound_by})")
+                f"device_ms={fmt_ms(dev_ms)} plain_ms={plain_ms:.4f} "
+                f"unfused_chain_ms={unfused_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+                f" reruns bitwise equal")
             assert err <= REL_TOL, (label, err)
+            assert plan.flops == 1.0, (label, plan)
             rec["cases"].append(dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
-                                     plain_ms=plain_ms, library_ms=None,
+                                     device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                                      unfused_ms=unfused_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by))
-        del args, x, ref, got
+                                     bound_by=bound_by, plan=list(plan)))
+        del args, x, ref, got, again
         models = sd2_models(gen)
         unet = models.unet
         blocks = {site: unet.get_submodule(path) for site, path in FF_SITES.items()}
@@ -1438,6 +1462,12 @@ def phase18(gen: torch.Generator, table: dict) -> None:
             assert err <= REL_TOL, (site, err)
     del models, unet, blocks, caught
     torch.cuda.empty_cache()
+    # the product kernels (the LN pass first in H's) carry HGMMA
+    products = fused_ff.KERNELS["F"] + fused_ff.KERNELS["H"][1:]
+    hold_wgmma_sass("fused_ff", products, "phase 18", spills=True)
+    for ln in SASS_REPORTS["fused_ff"].splitlines():   # the LN pass too: no HMMA, no spills
+        if "SASS lines" in ln and "registers" in ln:
+            assert re.search(r"HMMA 0;", ln) and re.search(r"spills 0$", ln), ln
 
 
 TRAIN_BATCH, TRAIN_SIZE = 3, 512
@@ -2976,7 +3006,8 @@ def main() -> int:
             replaces="benchmarks/research/gn_stats.py:87", cases=[], held_in_phase=17),
         "fused_ff": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/fused_ff.cu",
-            replaces="benchmarks/research/fused_ff.py:127", cases=[], held_in_phase=18),
+            replaces="benchmarks/research/fused_ff.py:127", cases=[], held_in_phase=18,
+            status="redesigned: fused wgmma kernel at C 320, LN + two wgmma GEMMs above"),
         "conv3x3_v1": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/conv3x3.cu",
             replaces="benchmarks/research/conv3x3.py:90", cases=[], held_in_phase=21),
@@ -3042,9 +3073,9 @@ def main() -> int:
         # K5-K12, which no path runs and `held_in_phase` holds); every path's
         # count is in launches_by_path, and each was checked above
         launches = next((n for n in runs.values() if n), 0)
-        extra = {k: rec[k] for k in ("held_in_phase",) if k in rec}
+        extra = {k: rec[k] for k in ("held_in_phase", "status") if k in rec}
         for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds", "gemm_ms",
-                    "attn_ms", "device_ms", "sdpa_backend", "sdpa_flash_ms"):
+                    "attn_ms", "device_ms", "sdpa_backend", "sdpa_flash_ms", "plan"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

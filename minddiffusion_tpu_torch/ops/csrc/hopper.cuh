@@ -1,5 +1,5 @@
 // Shared Hopper (sm_90a) pieces of the wgmma kernels (winograd.cu,
-// winograd43.cu, conv3x3.cu, attn_variants.cu, attn_diag.cu,
+// winograd43.cu, conv3x3.cu, fused_ff.cu, attn_variants.cu, attn_diag.cu,
 // packed_attention.cu and their attention core, attn_core.cuh):
 // shared-memory addresses, mbarriers (a wait that traps instead of
 // hanging), TMA tile loads and their tensor maps (3-d bf16 or fp32, and
@@ -16,6 +16,12 @@
 // operand (each k row holds 64 MN values): the k16 slice starts kk * 2048
 // bytes in, 8 k rows are 1024 bytes apart (stride offset), and the
 // leading offset is the distance between 64-column boxes along MN.
+//
+// Tiles 32 bf16 columns (64 bytes) wide take TMA's 64-byte swizzle: byte
+// (r, 16-byte chunk j) of a 512-byte-aligned tile sits at r * 64 + ((j ^
+// (r / 2 % 4)) * 16), and the descriptor has layout type 2 (SW64). As a
+// K-major operand its k16 slices start 0 and 32 bytes in, and 8-row groups
+// are 512 bytes apart (stride offset).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime's entry-point query
@@ -182,11 +188,13 @@ __device__ __forceinline__ uint32_t swizzle128(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
 }
 
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (SW128).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of a swizzled tile: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (SW128, the
+// default) or 2 (SW64).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
 
 
@@ -619,11 +627,13 @@ EncodeTiled encode_tiled() {
 
 // A (planes, rows, cols) bf16 array (fp32 with `fp32`), rows `ld` elements
 // apart (cols when 0) and planes `plane_ld` apart (rows * ld when 0), as a
-// tensor map whose box is box_cols (128 bytes, swizzled) x box_rows x 1
-// plane; out-of-range elements read as zero.
+// tensor map whose box is box_cols (128 bytes, swizzled; 64 bytes with
+// CU_TENSOR_MAP_SWIZZLE_64B) x box_rows x 1 plane; out-of-range elements
+// read as zero.
 bool make_map(CUtensorMap* map, const void* base, long long planes, long long rows,
               long long cols, int box_cols, int box_rows, long long ld = 0,
-              long long plane_ld = 0, bool fp32 = false) {
+              long long plane_ld = 0, bool fp32 = false,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   const int bytes = fp32 ? 4 : 2;
   if (ld == 0) ld = cols;
@@ -635,7 +645,7 @@ bool make_map(CUtensorMap* map, const void* base, long long planes, long long ro
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -71,12 +71,17 @@ def build(tmp: Path, source: str, signatures: dict) -> dict:
 
 
 def build_one(tmp: Path, source: str, signatures: dict, name: str, cuts) -> ctypes.CDLL:
-    """csrc/<source>.cu with `cuts`, built and loaded."""
+    """csrc/<source>.cu with `cuts` (regex, replacement pairs), or the file
+    at the path `cuts` in its place (another commit's, or a design tried),
+    built against this checkout's headers and loaded."""
     d = tmp / f"{source}_{name}"
     d.mkdir()
     for hdr in _build.CSRC.glob("*.cuh"):
         (d / hdr.name).write_text(hdr.read_text())
-    text = (_build.CSRC / f"{source}.cu").read_text()
+    if isinstance(cuts, str):
+        text, cuts = Path(cuts).read_text(), []
+    else:
+        text = (_build.CSRC / f"{source}.cu").read_text()
     for pattern, repl in cuts:
         text, n = re.subn(pattern, repl, text, flags=re.S)
         assert n, (source, name, pattern)

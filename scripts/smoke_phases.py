@@ -1,13 +1,17 @@
-"""Run phase 6 (K4 at its sites) or phase 7 (txt2img 768x1024) of
+"""Run phase 6 (K4 at its sites), phase 7 (txt2img 768x1024) or phase 18 (K5
+at ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) of
 chip_smoke.py alone, from this checkout or another one.
 
-    python3 scripts/smoke_phases.py [--root DIR] 6 7
+    python3 scripts/smoke_phases.py [--root DIR] 6 7 18
 
 `--root DIR` imports chip_smoke.py and the package from DIR (e.g. the parent
 commit, unpacked by `git archive` into `checkout/`), so that two commits are
 compared in one call: parent, change, change, parent. Phase 6 first builds
 every kernel (phase 1) and holds K1's SASS (as phase 2 does), which its
-register check reads. Needs one card; prints chip_smoke's own lines.
+register check reads. Phase 18 prints each case's kernel ms (CUDA events
+around one call) beside its plain version, the unfused chain and its bound
+(and, from a checkout that has them, the plan and device ms). Needs one
+card; prints chip_smoke's own lines.
 """
 from __future__ import annotations
 
@@ -43,8 +47,11 @@ def main() -> int:
         elif phase == "7":
             gen = torch.Generator(device="cuda").manual_seed(2)
             chip_smoke.phase7(chip_smoke.sd2_models(gen))
+        elif phase == "18":
+            chip_smoke.phase18(torch.Generator(device="cuda").manual_seed(0),
+                               {"fused_ff": dict(cases=[])})
         else:
-            raise SystemExit(f"smoke_phases: phase {phase} is not 6 or 7")
+            raise SystemExit(f"smoke_phases: phase {phase} is not 6, 7 or 18")
     return 0
 
 

@@ -512,14 +512,24 @@ def test_channel_sums_vjp(cuda):
         gn_stats.channel_sums(x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c", [(2, 300, 320), (1, 256, 640), (1, 100, 1280), (3, 1, 320)])
-def test_fused_ff_kernel_matches_plain(cuda, b, n, c):
-    g = torch.Generator(device=cuda).manual_seed(12)
+def _ff_args(g, b, n, c):
     f = 4 * c
-    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
-    args = (rand(b, n, c).to(torch.bfloat16), 1.0 + 0.1 * rand(c), 0.1 * rand(c),
+    rand = lambda *s: torch.randn(*s, generator=g, device=g.device)  # noqa: E731
+    return (rand(b, n, c).to(torch.bfloat16), 1.0 + 0.1 * rand(c), 0.1 * rand(c),
             rand(2 * f, c) * c ** -0.5, 0.1 * rand(2 * f), rand(c, f) * f ** -0.5, 0.1 * rand(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [
+    (2, 300, 320), (1, 256, 640), (1, 77, 640), (1, 100, 1280), (3, 1, 320), (1, 1, 1280),
+    (3, 130, 320), (2, 200, 1280), (2, 150, 960), (1, 77, 960)])
+def test_fused_ff_kernel_matches_plain(cuda, b, n, c):
+    """Both plans (F: the fused kernel at C 320; H: LN, up and down GEMMs
+    above, at C 960 with a last down tile of one 64-column box) at ragged M:
+    below a CTA's 128 rows, not a multiple of a cluster's 256, a single
+    row."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    args = _ff_args(g, b, n, c)
     before = fused_ff.fused_ln_geglu_ff.launches
     got = fused_ff.fused_ln_geglu_ff(*args)
     torch.cuda.synchronize()
@@ -530,13 +540,62 @@ def test_fused_ff_kernel_matches_plain(cuda, b, n, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,f", [(320, 32 * 41), (640, 32 * 81), (960, 32 * 121)])
+def test_fused_ff_takes_f_a_multiple_of_32(cuda, c, f):
+    """F need not be 4C nor a multiple of 64: the fused plan's chunks are
+    32 wide, the split plan's last U tile and K chunk are clipped and
+    zero-filled by TMA."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    args = (rand(2, 150, c).to(torch.bfloat16), 1.0 + 0.1 * rand(c), 0.1 * rand(c),
+            rand(2 * f, c) * c ** -0.5, 0.1 * rand(2 * f), rand(c, f) * f ** -0.5, 0.1 * rand(c))
+    got = fused_ff.fused_ln_geglu_ff(*args)
+    ref = fused_ff.fused_ff_plain(*args)
+    assert torch.isfinite(got.float()).all() and rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(2, 300, 320), (1, 77, 640), (1, 100, 960)])
+def test_fused_ff_reruns_are_bitwise_identical(cuda, b, n, c):
+    """No atomics and a fixed order of every sum: the same inputs give the
+    same bits."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    args = _ff_args(g, b, n, c)
+    first = fused_ff.fused_ln_geglu_ff(*args)
+    again = fused_ff.fused_ln_geglu_ff(*args)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,field,value", [(320, "stages", (7,)), (320, "smem", 1024),
+                                           (320, "rows", 64), (640, "stages", (2, 3))])
+def test_fused_ff_entry_refuses_a_plan_it_was_not_built_for(cuda, c, field, value):
+    """`ff_plan` states csrc/fused_ff.cu's compile-time rows, stages and
+    shared memory; the C entry checks them, so the two cannot drift apart
+    without a launch failing."""
+    args = _ff_args(torch.Generator(device=cuda).manual_seed(15), 1, 64, c)
+    plan = fused_ff.ff_plan(64, c, 4 * c)
+    with pytest.raises(RuntimeError, match="fused_ff launch"):
+        fused_ff._launch(plan._replace(**{field: value}), *args, eps=1e-5)
+
+
+def fused_ff_weights(device, c):
+    f = 4 * c
+    return [torch.zeros(c, device=device), torch.zeros(c, device=device),
+            torch.zeros(2 * f, c, device=device), torch.zeros(2 * f, device=device),
+            torch.zeros(c, f, device=device), torch.zeros(c, device=device)]
+
+
+@pytest.mark.cuda
 def test_fused_ff_raises_on_what_the_kernel_does_not_take(cuda):
+    """C must be a multiple of 320 up to 1280."""
     x = torch.zeros(1, 8, 64, device=cuda, dtype=torch.bfloat16)
-    w = [torch.zeros(64, device=cuda), torch.zeros(64, device=cuda),
-         torch.zeros(512, 64, device=cuda), torch.zeros(512, device=cuda),
-         torch.zeros(64, 256, device=cuda), torch.zeros(64, device=cuda)]
+    w = fused_ff_weights(cuda, 64)
     with pytest.raises(ValueError, match="multiple of 320"):
         fused_ff.fused_ln_geglu_ff(x, *w)
+    with pytest.raises(ValueError, match="up to 1280"):
+        fused_ff.fused_ln_geglu_ff(torch.zeros(1, 8, 1600, device=cuda, dtype=torch.bfloat16),
+                                   *fused_ff_weights(cuda, 1600))
     w[0] = w[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         fused_ff.fused_ln_geglu_ff(x, *w)

@@ -76,3 +76,44 @@ def test_forward_only():
         fused_ff.fused_ln_geglu_ff(x, *fused_ff.block_args(block))
     with torch.no_grad():
         assert fused_ff.fused_ln_geglu_ff(x, *fused_ff.block_args(block)).shape == x.shape
+
+
+@pytest.mark.parametrize("m,c,regime,ctas,tiles", [
+    (16 * 4096, 320, "F", (512,), (512,)),             # SD2 / Wukong 512^2 ds1
+    (16 * 1024, 640, "H", (1056, 132, 132), (2560, 640)),   # ds2
+    (16 * 256, 1280, "H", (512, 132, 132), (1280, 320)),    # ds4
+    (16 * 64, 1280, "H", (128, 132, 80), (320, 80)),        # the 8^2 mid block
+    (77, 320, "F", (2,), (2,)),                        # ragged: one cluster, rows past M
+    (1, 320, "F", (2,), (2,)),
+    (77, 1280, "H", (10, 40, 10), (40, 10)),            # one row tile: fewer CTAs than SMs
+])
+def test_ff_plan_at_the_sd_sites(m, c, regime, ctas, tiles):
+    """K5's plan (csrc/fused_ff.cu) at the SD2 / Wukong FF sites at CFG batch
+    16 and ragged M: regime F (fused, 2-CTA clusters of 128 rows) at C 320,
+    H (LN pass, up and down GEMMs on 128-row tiles of 128 U or output
+    columns, persistent on the 132 SMs) at C 640 and 1280; every product CTA fits a block's shared memory,
+    and the products' flops are 6 M C F exactly (nothing recomputed)."""
+    f = 4 * c
+    plan = fused_ff.ff_plan(m, c, f)
+    assert plan.regime == regime and plan.ctas == ctas
+    assert plan.smem <= fused_ff.SMEM_MAX == 232448
+    assert plan.flops == 1.0
+    assert plan.waves == tuple(t / 132 for t in tiles)
+    if regime == "F":
+        assert (plan.cluster, plan.launches, plan.rows, plan.fc) == (2, 1, 128, 32)
+        assert plan.stages == (14,)
+        assert ctas[0] * plan.rows >= m and ctas[0] % plan.cluster == 0
+    else:
+        assert (plan.cluster, plan.launches, plan.rows, plan.fc) == (1, 3, 128, 128)
+        assert plan.stages == (4, 6)
+        rows = -(-m // 128)
+        assert tiles == (rows * f // 128, rows * c // 128)
+
+
+def test_ff_plan_refuses_what_the_kernels_do_not_take():
+    for m, c, f in [(0, 320, 1280), (8, 64, 256), (8, 96, 384), (8, 320, 1000),
+                    (8, 1600, 6400)]:
+        with pytest.raises(ValueError, match="C a multiple of 320 up to 1280"):
+            fused_ff.ff_plan(m, c, f)
+    assert fused_ff.ff_plan(64, 960, 3840).regime == "H"
+    assert fused_ff.ff_plan(64, 640, 32 * 81).regime == "H"   # F a multiple of 32 only
