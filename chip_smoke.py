@@ -53,13 +53,20 @@ Phases (one line each; any failure raises and exits non-zero):
  16. the fused sampler tail (K9) vs its plain version and vs the port's own
      unfused super-res step on features caught in a phase-15-sized SR run,
      and in its "sd" mode at the SD2 main-path shape, beside the unfused
-     chain (GN+SiLU, cuDNN's conv, the sampler step). No path launches K9
-     (the JAX package retired its pipeline hook);
+     chain (GN+SiLU, cuDNN's conv, the sampler step), on the plan its
+     `tail_plan` gives, with the plan, CUDA-event and profiler device ms,
+     the wrapper's host µs and bitwise reruns; then
+     `scripts/ptxas_report.py glide_tail`: HGMMA and no HMMA or spills in
+     every instantiation. No path launches K9 (the JAX package retired its
+     pipeline hook);
  17. the channel-sums kernel (K6) vs its plain version at the UNet's
-     GroupNorm input shapes in both memory orders, beside the two torch
-     reductions (no single library call computes both sums); its VJP vs
-     autograd through the plain version; and (run
-     inside phase 19) vs GroupNorm32's sums on ResBlock inputs of a step;
+     GroupNorm input shapes and one shape whose rows are not 16-byte
+     aligned, in both memory orders, beside the two torch reductions (no
+     single library call computes both sums), on the plan its `stats_plan`
+     gives, with the plan, device ms, host µs and bitwise reruns; its VJP
+     vs autograd through the plain version; `scripts/ptxas_report.py
+     gn_stats` (no HMMA, no spills); and (run inside phase 19) vs
+     GroupNorm32's sums on ResBlock inputs of a step;
  18. the fused LN -> GEGLU -> FF kernel (K5) vs its plain version at the SD2
      transformer widths on the plan its `ff_plan` gives, with the plan,
      CUDA-event and profiler device ms, beside the unfused bf16 chain,
@@ -243,6 +250,19 @@ def device_ms(fn, kernel: str, runs: int = 10) -> "float | None":
                 for e in evs)
     count = sum(e.count for e in evs)
     return total / count / 1000.0 if count else None
+
+
+def launch_us(fn, runs: int = 20) -> float:
+    """Mean host µs a call of `fn` takes to return (the wrapper's Python, its
+    checks and the launch; the device is idle before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    us = (time.perf_counter() - t0) / runs * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def fmt_ms(ms: "float | None") -> str:
@@ -1250,21 +1270,29 @@ def phase16(models, img64_u8: torch.Tensor, gen: torch.Generator, table: dict) -
         return c_x * x + c_eps * (u + 9.0 * (cond - u))
 
     rec = table["glide_tail"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.inference_mode():
         for label, mode, a, unfused in (("glide_sr_256", "glide", args, glide_unfused),
                                         ("sd_cfg_64x64", "sd", sd_args, sd_unfused)):
             ref = gt.PLAIN[mode](*a)
-            got = gt.tail_step(*a, mode=mode)
+            call = lambda: gt.tail_step(*a, mode=mode)  # noqa: E731
+            got = call()
+            again = call()
             chain = unfused()
             torch.cuda.synchronize()
             assert torch.isfinite(got).all() and got.shape == a[1].shape, label
+            assert torch.equal(got, again), (label, "reruns differ")
             abs_err, err = errors(got, ref)
             _, err_chain = errors(got, chain)
-            ms = cuda_ms(lambda: gt.tail_step(*a, mode=mode))
+            ms = cuda_ms(call)
+            dev_ms = device_ms(call, "tail_kernel")
+            host_us = launch_us(call)
             plain_ms = cuda_ms(lambda: gt.PLAIN[mode](*a), runs=5)
             unfused_ms = cuda_ms(unfused, runs=5)
             nb, hh, ww, cc = a[0].shape
-            bound_ms, bound_by = tail_bound(nb, hh, ww, cc, a[4].shape[-1], a[1].shape[0])
+            co = a[4].shape[-1]
+            bound_ms, bound_by = tail_bound(nb, hh, ww, cc, co, a[1].shape[0])
+            plan = gt.tail_plan(a[0].shape, co, mode, sms)
             extra = ""
             if mode == "glide":
                 _, err_port = errors(got, probe["x_prev"])
@@ -1272,19 +1300,26 @@ def phase16(models, img64_u8: torch.Tensor, gen: torch.Generator, table: dict) -
                 extra = (f" rel_err_vs_port_step={err_port:.3e}"
                          f" unfused_vs_port_step={err_chain_port:.3e}")
                 assert err_port <= REL_TOL, (label, err_port)
+            log(f"[phase 16] glide_tail {label} plan={tuple(plan)}")
             log(f"[phase 16] glide_tail {label} mode={mode} h={tuple(a[0].shape)} "
-                f"co={a[4].shape[-1]} max_abs_err={abs_err:.3e} rel_err={err:.3e} "
+                f"co={co} max_abs_err={abs_err:.3e} rel_err={err:.3e} "
                 f"rel_err_vs_unfused={err_chain:.3e}{extra} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} unfused_chain_ms={unfused_ms:.4f} "
-                f"bound_ms={bound_ms:.4f} ({bound_by})")
+                f"device_ms={fmt_ms(dev_ms)} host_us={host_us:.1f} plain_ms={plain_ms:.4f} "
+                f"unfused_chain_ms={unfused_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"reruns bitwise equal")
             assert err <= REL_TOL and err_chain <= REL_TOL, (label, err, err_chain)
             rec["cases"].append(dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
-                                     plain_ms=plain_ms, library_ms=None,
-                                     unfused_ms=unfused_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by))
+                                     device_ms=dev_ms, host_us=host_us, plain_ms=plain_ms,
+                                     library_ms=None, unfused_ms=unfused_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by, plan=list(plan)))
+    # every instantiation runs its products on wgmma, none spills
+    hold_wgmma_sass("glide_tail", ("tail_kernel",), "phase 16", spills=True)
 
 
-GN_CASES = [(16, 64, 64, 320), (16, 32, 32, 640), (16, 16, 16, 1280), (3, 64, 64, 320)]
+# the UNet's GroupNorm inputs at 512^2 (CFG batch 16, and batch 3), and one
+# shape whose rows are not 16-byte aligned in either order (4-byte loads)
+GN_CASES = [(16, 64, 64, 320), (16, 32, 32, 640), (16, 16, 16, 1280), (3, 64, 64, 320),
+            (15, 64, 64, 322)]
 
 
 def stats_bound(b: int, h: int, w: int, c: int) -> "tuple[float, str]":
@@ -1295,35 +1330,48 @@ def stats_bound(b: int, h: int, w: int, c: int) -> "tuple[float, str]":
 
 def phase17(gen: torch.Generator, table: dict) -> None:
     """K6 (channel sums) against its plain version at the UNet's GroupNorm
-    input shapes, in both memory orders, beside the two torch reductions;
-    its VJP against autograd through the plain version. Its check on real
-    ResBlock inputs runs inside phase 19 (`hold_k6_on_resblocks`)."""
+    input shapes, in both memory orders, beside the two torch reductions
+    (no single library call computes both sums), on the plan `stats_plan`
+    gives; reruns bitwise; its VJP against autograd through the plain
+    version; ptxas of csrc/gn_stats.cu. Its check on real ResBlock inputs
+    runs inside phase 19 (`hold_k6_on_resblocks`)."""
     from minddiffusion_tpu_torch.ops import gn_stats
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, h, w, c in GN_CASES:
         x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
         xt = x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
         ref = gn_stats.channel_sums_plain(x)
         for layout, xx in (("bhwc", x), ("hwbc", xt)):
-            got = gn_stats.channel_sums(xx, layout == "hwbc")
+            call = lambda: gn_stats.channel_sums(xx, layout == "hwbc")  # noqa: E731
+            got = call()
+            again = call()
             torch.cuda.synchronize()
             abs_err, err = max(errors(g, r) for g, r in zip(got, ref))
             assert all(torch.isfinite(g).all() for g in got), layout
-            ms = cuda_ms(lambda: gn_stats.channel_sums(xx, layout == "hwbc"))
+            assert all(torch.equal(g, a) for g, a in zip(got, again)), (layout, "reruns differ")
+            ms = cuda_ms(call)
+            dev_ms = device_ms(call, "channel_sums_kernel")
+            host_us = launch_us(call)
             plain_ms = cuda_ms(lambda: gn_stats.channel_sums_plain(xx), runs=5)
             # no single library call computes both sums: the yardstick is two
             reductions_ms = cuda_ms(lambda: (xx.float().sum((1, 2)),
                                              (xx.float() ** 2).sum((1, 2))))
             bound_ms, bound_by = stats_bound(b, h, w, c)
+            plan = gn_stats.stats_plan(xx.shape, layout == "hwbc", sms, xx.data_ptr() % 16 == 0)
             label = f"{b}x{h}x{w}x{c}_{layout}"
+            log(f"[phase 17] channel_sums {label} plan={tuple(plan)}")
             log(f"[phase 17] channel_sums {label} max_abs_err={abs_err:.3e} "
-                f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"torch_reductions_ms={reductions_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+                f"rel_err={err:.3e} kernel_ms={ms:.4f} device_ms={fmt_ms(dev_ms)} "
+                f"host_us={host_us:.1f} plain_ms={plain_ms:.4f} "
+                f"torch_reductions_ms={reductions_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
+                f" reruns bitwise equal")
             assert err <= REL_TOL, (label, err)
             table["channel_sums"]["cases"].append(
-                dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
-                     library_ms=None, unfused_ms=reductions_ms, bound_ms=bound_ms,
-                     bound_by=bound_by))
+                dict(case=label, abs_err=abs_err, rel_err=err, ms=ms, device_ms=dev_ms,
+                     host_us=host_us, plain_ms=plain_ms, library_ms=None,
+                     unfused_ms=reductions_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     plan=list(plan)))
     x = torch.randn(3, 32, 32, 640, generator=gen, device="cuda").to(torch.bfloat16)
     g1, g2 = (torch.randn(3, 640, generator=gen, device="cuda") for _ in range(2))
     grads = []
@@ -1333,6 +1381,14 @@ def phase17(gen: torch.Generator, table: dict) -> None:
     _, err = errors(*grads)
     log(f"[phase 17] channel_sums vjp (3, 32, 32, 640) rel_err_vs_autograd_plain={err:.3e}")
     assert err <= REL_TOL, err
+    # ptxas and the SASS: a reduction (no tensor-core lines), no spills
+    report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
+                                      "ptxas_report.py"), "gn_stats"])
+    SASS_REPORTS["gn_stats"] = report
+    rows = [ln for ln in report.splitlines() if "channel_sums_kernel" in ln and "SASS lines" in ln]
+    for ln in report.splitlines():
+        log(f"[phase 17] {ln}")
+    assert rows and all(re.search(r"HMMA 0;.*spills 0$", ln) for ln in rows), rows
 
 
 def hold_k6_on_resblocks(captured: dict) -> None:
@@ -3000,10 +3056,12 @@ def main() -> int:
             replaces="minddiffusion_tpu/ops/winograd.py:494", cases=[]),
         "glide_tail": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/glide_tail.cu",
-            replaces="benchmarks/research/glide_tail.py:282", cases=[], held_in_phase=16),
+            replaces="benchmarks/research/glide_tail.py:282", cases=[], held_in_phase=16,
+            status="redesigned: persistent TMA halo boxes, SiLU in place, taps on wgmma"),
         "channel_sums": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/gn_stats.cu",
-            replaces="benchmarks/research/gn_stats.py:87", cases=[], held_in_phase=17),
+            replaces="benchmarks/research/gn_stats.py:87", cases=[], held_in_phase=17,
+            status="redesigned: one launch, slabs reduced through distributed shared memory"),
         "fused_ff": dict(
             route="cuda", source="minddiffusion_tpu_torch/ops/csrc/fused_ff.cu",
             replaces="benchmarks/research/fused_ff.py:127", cases=[], held_in_phase=18,
@@ -3075,7 +3133,7 @@ def main() -> int:
         launches = next((n for n in runs.values() if n), 0)
         extra = {k: rec[k] for k in ("held_in_phase", "status") if k in rec}
         for key in ("unfused_ms", "direct_conv_rel_l2", "k1_ms", "holds", "gemm_ms",
-                    "attn_ms", "device_ms", "sdpa_backend", "sdpa_flash_ms", "plan"):
+                    "attn_ms", "device_ms", "host_us", "sdpa_backend", "sdpa_flash_ms", "plan"):
             if key in main_case:
                 extra[key] = main_case[key]
         kernels.append(dict(

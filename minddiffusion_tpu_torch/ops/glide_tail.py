@@ -20,12 +20,18 @@ Numerics (`ddim_tail_step_ref`): the affine and SiLU in fp32, rounded to
 h's dtype for the conv, the weights rounded to h's dtype, fp32
 accumulation plus the fp32 bias; the SAME padding is zero after the
 affine. The wrapper takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel on the plan `tail_plan` gives (persistent
+CTAs over 32 x 8-pixel output tiles, the affine and SiLU in place on each
+TMA-landed halo box, the products on wgmma) or raises.
+The kernel rounds w_eps (fp32, bf16 or fp16) to bf16 itself, so a call
+launches nothing else.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +40,69 @@ from minddiffusion_tpu_torch.core.schedules import DiffusionSchedule
 from minddiffusion_tpu_torch.ops import _build
 from minddiffusion_tpu_torch.samplers import ancestral
 
-_SIGNATURES = {
-    "mdt_glide_tail": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+_SIGNATURES = {   # 8 pointers, bh, H, W, C, co, mode, the two weight types, the plan (5)
+    "mdt_glide_tail": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 }
 MODES = {"glide": 0, "sd": 1}
 KERNEL_CO = (3, 4)          # the GLIDE eps half, the SD latent
-MAX_C_TIMES_CO = 4900       # the weights' share of the kernel's shared memory
+SMEM_MAX = 232448           # a block's shared memory on the H100
+SMS = 132                   # the H100's SMs, where no card is asked
+# csrc/glide_tail.cu's compile-time choices; its C entry refuses a plan that
+# states other ones
+TILE_W, TILE_H, MIN_STAGES, MAX_STAGES = 32, 8, 2, 4
+BOX_PIX = (TILE_W + 2) * (TILE_H + 2)           # the halo box: the products' N
+STAGE_BYTES = -(-BOX_PIX * 128 // 1024) * 1024  # a box of 64 channels
+W_ROWS = {3: 32, 4: 40}     # W^T's rows a chunk: the 9 co tap-channel rows, padded
+Z_STRIDE = BOX_PIX + 4      # Z^T's row stride in floats
+WEIGHT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class TailPlan(NamedTuple):
+    """How csrc/glide_tail.cu computes one call. tile: output pixels a tile
+    (w, h), whose (w + 2) x (h + 2) halo box is the products' N; rows: W^T's
+    rows a 64-channel chunk (the 9 co tap-channel rows, padded); chunks:
+    64-channel boxes a tile loads (both CFG halves in "sd"); stages: the
+    ring's, as many as shared memory holds up to 4; ctas: persistent, one
+    an SM; tiles; waves: tiles a CTA; smem: shared-memory bytes a CTA; halo:
+    the box's pixels over the output pixels at this shape."""
+    tile: tuple
+    rows: int
+    chunks: int
+    stages: int
+    ctas: int
+    tiles: int
+    waves: float
+    smem: int
+    halo: float
+
+
+@functools.lru_cache(maxsize=256)
+def tail_plan(shape, co: int, mode: str = "glide", sms: int = SMS) -> TailPlan:
+    """The plan of csrc/glide_tail.cu for h of shape (bh, H, W, C) to `co`
+    eps channels in `mode` on `sms` SMs. Raises ValueError for what the
+    kernel does not take: C % 8, co not in KERNEL_CO, an odd "sd" batch,
+    or more shared memory than a block has (C above 1600 at co 3, 1152 at
+    co 4)."""
+    bh, hh, ww, c = (int(v) for v in shape)
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; expected one of {list(MODES)}")
+    if (c % 8 or c < 8 or co not in KERNEL_CO or (mode == "sd" and bh % 2)
+            or min(bh, hh, ww) < 1):
+        raise ValueError(f"kernel takes C % 8 == 0, co in {KERNEL_CO} and an even sd batch; "
+                         f"got h {tuple(shape)}, co {co}, mode {mode}")
+    halves = 2 if mode == "sd" else 1
+    q = -(-c // 64)
+    fixed = 1024 + q * W_ROWS[co] * 128 + 9 * co * Z_STRIDE * 4
+    stages = max([st for st in range(MIN_STAGES, MAX_STAGES + 1)
+                  if fixed + st * (STAGE_BYTES + 16) <= SMEM_MAX], default=MIN_STAGES)
+    smem = fixed + stages * (STAGE_BYTES + 16)
+    if smem > SMEM_MAX:
+        raise ValueError(f"kernel takes C up to what {SMEM_MAX} bytes of shared memory hold; "
+                         f"C {c} at co {co} needs {smem}")
+    tiles = -(-ww // TILE_W) * -(-hh // TILE_H) * (bh // halves)
+    ctas = min(tiles, sms)
+    return TailPlan((TILE_W, TILE_H), W_ROWS[co], halves * q, stages, ctas, tiles,
+                    tiles / ctas, smem, tiles // (bh // halves) * BOX_PIX / (hh * ww))
 
 
 def tail_eps(h: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
@@ -74,7 +137,8 @@ PLAIN = {"glide": ddim_tail_step_plain, "sd": sd_cfg_tail_step_plain}
 
 
 def tail_step(h, x, mult, add, w_eps, b_eps, coefs, mode: str = "glide") -> torch.Tensor:
-    """K9 in `mode` ("glide" or "sd"). Counts its kernel launches in
+    """K9 in `mode` ("glide" or "sd"). On the card, one launch of
+    `tail_plan(h.shape, co, mode)`; counts its launches in
     `tail_step.launches`."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; expected one of {list(MODES)}")
@@ -95,20 +159,30 @@ def tail_step(h, x, mult, add, w_eps, b_eps, coefs, mode: str = "glide") -> torc
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape}, got {tuple(t.shape)}")
-    if (h.device.type != "cuda" or c % 8 or co not in KERNEL_CO
-            or c * co > MAX_C_TIMES_CO or (mode == "sd" and bh % 2)):
-        raise ValueError(f"kernel takes CUDA tensors with C % 8 == 0, co in {KERNEL_CO}, "
-                         f"C * co <= {MAX_C_TIMES_CO} and an even sd batch; got "
-                         f"h {tuple(h.shape)}, co {co}, mode {mode}")
-    w = w_eps.to(h.dtype).float().contiguous()
-    b = b_eps.float().contiguous()
-    out = torch.empty((bx, hh, ww, co), dtype=torch.float32, device=h.device)
+    if h.device.type != "cuda":
+        raise ValueError(f"kernel takes CUDA tensors, got {h.device}")
+    for name, t in (("w_eps", w_eps), ("b_eps", b_eps)):
+        if t.dtype not in WEIGHT_TYPES:
+            raise TypeError(f"{name} must be one of {list(WEIGHT_TYPES)}, got {t.dtype}")
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    return _launch(tail_plan(h.shape, co, mode, sms), h, x, mult, add, w_eps, b_eps, coefs,
+                   mode)
+
+
+def _launch(plan: TailPlan, h, x, mult, add, w_eps, b_eps, coefs, mode: str) -> torch.Tensor:
+    """Runs `plan` on the card on inputs checked by the caller."""
+    bh, hh, ww, c = h.shape
+    co = w_eps.shape[-1]
+    out = torch.empty((bh // 2 if mode == "sd" else bh, hh, ww, co), dtype=torch.float32,
+                      device=h.device)
     lib = _build.load("glide_tail", _SIGNATURES)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(h.device):
         err = lib.mdt_glide_tail(h.data_ptr(), x.data_ptr(), mult.data_ptr(), add.data_ptr(),
-                                 w.data_ptr(), b.data_ptr(), coefs.data_ptr(), out.data_ptr(),
-                                 bh, hh, ww, c, co, MODES[mode], stream)
+                                 w_eps.data_ptr(), b_eps.data_ptr(), coefs.data_ptr(),
+                                 out.data_ptr(), bh, hh, ww, c, co, MODES[mode],
+                                 WEIGHT_TYPES[w_eps.dtype], WEIGHT_TYPES[b_eps.dtype],
+                                 *plan.tile, plan.stages, plan.ctas, plan.smem,
+                                 torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "glide_tail launch")
     tail_step.launches += 1
     return out

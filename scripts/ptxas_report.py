@@ -4,7 +4,8 @@ SASS, per kernel and in all: HGMMA (Hopper's wgmma) and HMMA (mma.sync).
 
     python3 scripts/ptxas_report.py winograd [more names] [--root DIR]
 
-A name is csrc/<name>.cu's (e.g. `fused_ff`, K5's), or `packed` for K1's
+A name is csrc/<name>.cu's (e.g. `fused_ff`, K5's; `glide_tail`, K9's;
+`gn_stats`, K6's), or `packed` for K1's
 packed_attention.cu, or `flash` for K4's flash_attention.cu. Each kernel's line reads "SASS lines
 with HGMMA n, HMMA m; registers r, spills s" (s: the bytes of its spill
 stores and loads). Compiles minddiffusion_tpu_torch/ops/csrc/<name>.cu with

@@ -1,17 +1,21 @@
-"""Run phase 6 (K4 at its sites), phase 7 (txt2img 768x1024) or phase 18 (K5
-at ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) of
+"""Run phase 6 (K4 at its sites), phase 7 (txt2img 768x1024), phase 16 (K9
+in both modes), phase 17 (K6 in both memory orders) or phase 18 (K5 at
+ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) of
 chip_smoke.py alone, from this checkout or another one.
 
-    python3 scripts/smoke_phases.py [--root DIR] 6 7 18
+    python3 scripts/smoke_phases.py [--root DIR] 6 7 16 17 18
 
 `--root DIR` imports chip_smoke.py and the package from DIR (e.g. the parent
 commit, unpacked by `git archive` into `checkout/`), so that two commits are
 compared in one call: parent, change, change, parent. Phase 6 first builds
 every kernel (phase 1) and holds K1's SASS (as phase 2 does), which its
-register check reads. Phase 18 prints each case's kernel ms (CUDA events
-around one call) beside its plain version, the unfused chain and its bound
-(and, from a checkout that has them, the plan and device ms). Needs one
-card; prints chip_smoke's own lines.
+register check reads. Phase 16 runs the GLIDE super-res stage at batch 8
+on a seeded random 64 px image (in place of phase 15's cascade output) to
+catch K9's inputs. Phases 16, 17 and 18 print each case's kernel ms (CUDA
+events around one call) beside its plain version, the unfused chain or the
+torch reductions and its bound (and, from a checkout that has them, the
+plan, the device ms and the wrapper's host µs). Needs one card; prints
+chip_smoke's own lines.
 """
 from __future__ import annotations
 
@@ -47,11 +51,21 @@ def main() -> int:
         elif phase == "7":
             gen = torch.Generator(device="cuda").manual_seed(2)
             chip_smoke.phase7(chip_smoke.sd2_models(gen))
+        elif phase == "16":
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            img64 = torch.randint(0, 256, (chip_smoke.GLIDE_BATCH, 64, 64, 3), generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+            chip_smoke.phase16(chip_smoke.glide_models(), img64, gen,
+                               {"glide_tail": dict(cases=[])})
+            torch.cuda.empty_cache()
+        elif phase == "17":
+            chip_smoke.phase17(torch.Generator(device="cuda").manual_seed(0),
+                               {"channel_sums": dict(cases=[])})
         elif phase == "18":
             chip_smoke.phase18(torch.Generator(device="cuda").manual_seed(0),
                                {"fused_ff": dict(cases=[])})
         else:
-            raise SystemExit(f"smoke_phases: phase {phase} is not 6, 7 or 18")
+            raise SystemExit(f"smoke_phases: phase {phase} is not 6, 7, 16, 17 or 18")
     return 0
 
 

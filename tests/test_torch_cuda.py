@@ -331,28 +331,62 @@ def test_packed_attention_raises_on_shapes_without_a_plan(cuda):
         flash_attention.flash_attention_packed(odd, odd, odd, 8, 48 ** -0.5)
 
 
+def _tail_args(g, mode, b, h, w, c, co, wdt=torch.float32):
+    rand = lambda *s: torch.randn(*s, generator=g, device=g.device)  # noqa: E731
+    bx = b // 2 if mode == "sd" else b
+    return [rand(b, h, w, c).to(torch.bfloat16), rand(bx, h, w, co), 1.0 + 0.2 * rand(b, c),
+            0.2 * rand(b, c), (rand(3, 3, c, co) * (9 * c) ** -0.5).to(wdt),
+            (0.1 * rand(co)).to(wdt),
+            torch.tensor([1.7, 0.9, 0.8, 0.4] if mode == "glide" else [5.0, 1.02, -0.3, 0.0],
+                         device=g.device)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,b,h,w,c,co", [
     ("glide", 2, 32, 40, 192, 3), ("glide", 1, 17, 9, 64, 3),
-    ("sd", 4, 16, 24, 320, 4), ("sd", 2, 9, 33, 40, 3)])
+    ("sd", 4, 16, 24, 320, 4), ("sd", 2, 9, 33, 40, 3),
+    ("glide", 2, 13, 37, 200, 4), ("glide", 1, 9, 70, 40, 4),
+    ("sd", 4, 20, 11, 200, 3), ("sd", 2, 8, 32, 40, 4)])
 def test_glide_tail_kernel_matches_plain(cuda, mode, b, h, w, c, co):
-    """K9 in both modes, at ragged tile edges and a channel count that is not
-    a multiple of its 32-channel chunk."""
-    g = torch.Generator(device=cuda).manual_seed(3)
-    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
-    bx = b // 2 if mode == "sd" else b
-    args = [rand(b, h, w, c).to(torch.bfloat16), rand(bx, h, w, co), 1.0 + 0.2 * rand(b, c),
-            0.2 * rand(b, c), rand(3, 3, c, co) * (9 * c) ** -0.5, 0.1 * rand(co),
-            torch.tensor([1.7, 0.9, 0.8, 0.4] if mode == "glide" else [5.0, 1.02, -0.3, 0.0],
-                         device=cuda)]
+    """K9 in both modes and both co, at C not a multiple of its 64-channel
+    boxes (40, 200) and H, W not multiples of its 32 x 8 tile; reruns are
+    bitwise equal."""
+    args = _tail_args(torch.Generator(device=cuda).manual_seed(3), mode, b, h, w, c, co)
     before = glide_tail.tail_step.launches
     got = glide_tail.tail_step(*args, mode=mode)
-    assert glide_tail.tail_step.launches == before + 1
+    again = glide_tail.tail_step(*args, mode=mode)
+    assert glide_tail.tail_step.launches == before + 2
     ref = glide_tail.PLAIN[mode](*args)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max() / ref.abs().max()
     assert err.item() <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float16])
+def test_glide_tail_rounds_bf16_and_fp16_weights_itself(cuda, wdt):
+    """The kernel reads w_eps and b_eps in their own type (a bf16 model's
+    out_conv), as the plain version takes them."""
+    args = _tail_args(torch.Generator(device=cuda).manual_seed(4), "glide", 2, 16, 40, 128, 3,
+                      wdt)
+    got = glide_tail.tail_step(*args, mode="glide")
+    ref = glide_tail.PLAIN["glide"](*args)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("tile", (16, 8)), ("stages", 5), ("smem", 1024),
+                                         ("ctas", 0)])
+def test_glide_tail_entry_refuses_a_plan_it_was_not_built_for(cuda, field, value):
+    """`tail_plan` states csrc/glide_tail.cu's tile, stages and shared
+    memory; the C entry checks them, and that the persistent CTAs are at
+    least one and at most one a tile."""
+    args = _tail_args(torch.Generator(device=cuda).manual_seed(5), "glide", 1, 16, 40, 64, 3)
+    plan = glide_tail.tail_plan(args[0].shape, 3, "glide")
+    with pytest.raises(RuntimeError, match="glide_tail launch"):
+        glide_tail._launch(plan._replace(**{field: value}), *args, mode="glide")
 
 
 @pytest.mark.cuda
@@ -483,9 +517,12 @@ def test_training_route_carries_the_gn_gradient(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 64, 64, 320), (3, 17, 9, 640), (2, 16, 16, 1280),
-                                   (1, 3, 5, 10)])
+                                   (1, 3, 5, 10), (3, 7, 5, 34)])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_channel_sums_kernel_matches_plain(cuda, shape, transposed):
+    """K6 in both memory orders; (1, 3, 5, 10) and (3, 7, 5, 34) have rows
+    that are not 16-byte aligned (4-byte loads) in both; reruns are bitwise
+    equal (no float atomics)."""
     g = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
     if transposed:
@@ -498,6 +535,29 @@ def test_channel_sums_kernel_matches_plain(cuda, shape, transposed):
     r1, r2 = gn_stats.channel_sums_plain(x)
     assert rel_err(s1, r1) <= 1e-4 and rel_err(s2, r2) <= 1e-4
     assert torch.equal(s1, again[0]) and torch.equal(s2, again[1])   # no atomics
+
+
+@pytest.mark.cuda
+def test_channel_sums_kernel_off_a_16_byte_boundary(cuda):
+    """A tensor whose first element is 4 bytes past a 16-byte boundary takes
+    the 4-byte loads."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    flat = torch.randn(2 + 4 * 16 * 16 * 64, generator=g, device=cuda).to(torch.bfloat16)
+    x = flat[2:].view(4, 16, 16, 64)
+    assert x.data_ptr() % 16 == 4
+    s1, s2 = gn_stats.channel_sums(x)
+    r1, r2 = gn_stats.channel_sums_plain(x)
+    assert rel_err(s1, r1) <= 1e-4 and rel_err(s2, r2) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("vec", 2), ("cols_per_cta", 32), ("cluster", 9),
+                                         ("rows_per_cta", 100), ("ctas", 7)])
+def test_channel_sums_entry_refuses_a_plan_it_was_not_built_for(cuda, field, value):
+    x = torch.zeros(2, 16, 16, 64, device=cuda, dtype=torch.bfloat16)
+    plan = gn_stats.stats_plan(x.shape)
+    with pytest.raises(RuntimeError, match="channel_sums launch"):
+        gn_stats._run(x, plan._replace(**{field: value}))
 
 
 @pytest.mark.cuda

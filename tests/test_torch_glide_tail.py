@@ -88,3 +88,44 @@ def test_tail_plain_equals_the_ports_unfused_sr_step():
         assert all(a.is_contiguous() for a in args)         # as the kernel takes them
         got = glide_tail.tail_step(*args, mode="glide")
         assert_rel(got.numpy(), probe["x_prev"].numpy(), 1e-5)
+
+
+# (shape, co, mode, stages, CTAs, tiles, channel chunks, shared bytes):
+# chip_smoke phase 16's two cases, then the card tests' C not a multiple of
+# 64 and H, W not multiples of the 32 x 8 tile
+PLAN_SITES = [
+    ((8, 256, 256, 192), 3, "glide", 4, 132, 2048, 3, 226656),
+    ((16, 64, 64, 320), 4, "sd", 3, 128, 128, 10, 208304),
+    ((2, 13, 37, 200), 4, "glide", 3, 8, 8, 4, 203184),
+    ((4, 20, 11, 40), 4, "sd", 4, 6, 6, 2, 231872),
+    ((2, 9, 33, 40), 3, "sd", 4, 4, 4, 2, 218464),
+    ((1, 17, 9, 64), 3, "glide", 4, 3, 3, 1, 218464),
+]
+
+
+@pytest.mark.parametrize("shape,co,mode,stages,ctas,tiles,chunks,smem", PLAN_SITES)
+def test_tail_plan_at_both_modes(shape, co, mode, stages, ctas, tiles, chunks, smem):
+    """K9's plan (csrc/glide_tail.cu): persistent CTAs, one an SM, over an
+    image's 32 x 8 output tiles (both CFG halves in one tile in "sd"), the
+    products over each tile's 34 x 10 halo box, W^T's 27 or 36 rows padded
+    to 32 or 40, the deepest ring shared memory holds."""
+    plan = glide_tail.tail_plan(shape, co, mode)
+    bh, h, w, c = shape
+    assert (plan.stages, plan.ctas, plan.tiles, plan.chunks, plan.smem) == (
+        stages, ctas, tiles, chunks, smem)
+    assert plan.tile == (32, 8) and plan.rows == {3: 32, 4: 40}[co] >= 9 * co
+    assert plan.tiles == -(-w // 32) * -(-h // 8) * (bh // 2 if mode == "sd" else bh)
+    assert plan.ctas == min(plan.tiles, glide_tail.SMS) and plan.waves == plan.tiles / plan.ctas
+    assert plan.smem <= glide_tail.SMEM_MAX and plan.halo == pytest.approx(
+        -(-w // 32) * -(-h // 8) * 340 / (h * w))
+
+
+def test_tail_plan_refuses_what_the_kernel_does_not_take():
+    for args in [((2, 8, 8, 36), 3, "glide"), ((2, 8, 8, 64), 5, "glide"),
+                 ((3, 8, 8, 64), 4, "sd"), ((2, 8, 8, 64), 3, "bogus")]:
+        with pytest.raises(ValueError):
+            glide_tail.tail_plan(*args)
+    for c, co in [(1600, 3), (1152, 4)]:          # the widest C shared memory holds
+        assert glide_tail.tail_plan((2, 8, 8, c), co, "sd").stages == 2
+        with pytest.raises(ValueError, match="shared memory"):
+            glide_tail.tail_plan((2, 8, 8, c + 8), co, "sd")

@@ -98,3 +98,39 @@ def test_groupnorm_affine_is_built_from_these_sums():
                                     norm.eps)
     np.testing.assert_allclose((x * mult[:, None, None] + add[:, None, None]).detach(),
                                norm(x).detach(), atol=1e-5)
+
+
+# (shape, transposed, vec, cluster, rows a CTA, CTAs): chip_smoke phase 17's
+# UNet GroupNorm inputs (CFG batch 16 at 512^2, and batch 3), its case of
+# rows that are not 16-byte aligned, and the card tests' ragged shapes
+PLAN_SITES = [
+    ((16, 64, 64, 320), False, 8, 7, 586, 560), ((16, 64, 64, 320), True, 8, 7, 586, 560),
+    ((16, 32, 32, 640), False, 8, 4, 256, 640), ((16, 16, 16, 1280), True, 8, 1, 256, 320),
+    ((3, 64, 64, 320), False, 8, 8, 512, 120), ((15, 64, 64, 322), True, 2, 7, 586, 532),
+    ((3, 17, 9, 640), True, 8, 2, 77, 60), ((1, 3, 5, 10), False, 2, 1, 15, 1),
+    ((3, 7, 5, 34), False, 2, 2, 18, 6),
+]
+
+
+@pytest.mark.parametrize("shape,transposed,vec,cluster,rows,ctas", PLAN_SITES)
+def test_stats_plan_at_the_unet_sites(shape, transposed, vec, cluster, rows, ctas):
+    """K6's plan (csrc/gn_stats.cu): 16-byte loads where every row is
+    16-byte aligned, the slabs of a column block one cluster of at most 8,
+    rows split evenly, the sums meeting in distributed shared memory."""
+    plan = gn_stats.stats_plan(shape, transposed)
+    b, h, w, c = shape
+    assert (plan.vec, plan.cluster, plan.rows_per_cta, plan.ctas) == (vec, cluster, rows, ctas)
+    assert (plan.planes, plan.cols) == ((1, b * c) if transposed else (b, c))
+    assert plan.rows == h * w and plan.scratch == 0 and plan.smem <= 48 * 1024
+    assert 1 <= plan.cluster <= gn_stats.MAX_CLUSTER
+    assert (plan.cluster - 1) * plan.rows_per_cta < plan.rows <= plan.cluster * plan.rows_per_cta
+    assert plan.ctas == plan.cluster * -(-plan.cols // plan.cols_per_cta) * plan.planes
+    assert plan.waves == plan.ctas / (gn_stats.SMS * gn_stats.CTAS_PER_SM)
+    # a first element that is not 16-byte aligned takes the 4-byte loads
+    assert gn_stats.stats_plan(shape, transposed, base_aligned=False).vec == 2
+
+
+def test_stats_plan_refuses_what_the_kernel_does_not_take():
+    for shape in [(2, 4, 4, 9), (0, 4, 4, 8), (2, 0, 4, 8)]:
+        with pytest.raises(ValueError, match="C even"):
+            gn_stats.stats_plan(shape)
