@@ -12,7 +12,8 @@ Phases (one line each; any failure raises and exits non-zero):
      kernels csrc/attn_core.cuh too, K1's and K4's csrc/attn512.cuh), one
      nvcc each, all at once;
   2. packed-attention kernel (K1) vs its plain version at the main-path
-     shapes and every head width (D 40, 64, 80, 160, 512), ragged Nq and
+     shapes (the first self-attention at batch B too, where CFG-prefix
+     dedup runs it) and every head width (D 40, 64, 80, 160, 512), ragged Nq and
      Nk, beside F.scaled_dot_product_attention on the same tensors (the
      backend PyTorch took named) and K4 at D 512, with the CTAs and waves
      of each launch; then `scripts/ptxas_report.py packed`, whose SASS
@@ -22,9 +23,15 @@ Phases (one line each; any failure raises and exits non-zero):
      prologue) of the main path's 21 launches an eval and a ragged case,
      beside cuDNN's F.conv2d, the bound and the TFLOP/s reached;
   4. one full-width SD2 UNet eval, kernel path vs plain path, with K2's
-     launches by shape held against phase 3's list;
+     launches by shape held against phase 3's list; then one with
+     `cfg_fold` (x at B 8, the context at 16) vs the plain path on the
+     duplicated batch, with K1's launches by batch (one at 8, nine at 16);
   5. the main path: SD2 txt2img 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
-     seeded random weights, with kernel launch counts;
+     seeded random weights, with kernel launch counts and the UNet prefix's
+     batch (B: CFG-prefix dedup and the K/V hoist on, the defaults); then
+     the two sampling savings on and off in one call (both off, both on,
+     each alone), the K/V hoist alone bytewise equal to neither, the
+     images on vs off within the bf16 tolerance;
   6. head-split attention kernel (K4) vs its plain version at the 768x1024
      and 768^2 sites, ragged cases at every head width, a static-shift and
      a logit > 88 case, beside F.scaled_dot_product_attention and K1 on the
@@ -33,8 +40,9 @@ Phases (one line each; any failure raises and exits non-zero):
      SASS must show wgmma and no mma.sync, and ptxas no spills, in every K4
      kernel, each at K1's registers;
   7. txt2img 768x1024, DDIM-50, CFG 9.0, batch 4: rerun bytes, s/batch,
-     launch counts;
-  8. img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4, launch counts;
+     launch counts, s/batch with the sampling savings off;
+  8. img2img 768^2, strength 0.75, DDIM-50, CFG 9.0, batch 4, launch counts,
+     the UNet prefix at B;
   9. txt2img 512^2 with the DPM-Solver++ (2M) sampler, 20 steps, batch 8,
      launch counts;
  10. gathered-tile Winograd kernel (K3) vs its plain version at the phase-3
@@ -42,14 +50,17 @@ Phases (one line each; any failure raises and exits non-zero):
      tensors;
  11. one full-width Wukong-Huahua (SD1) UNet eval, kernel path vs plain path;
  12. path A: Wukong txt2img 512^2, DPM-Solver++ (2M) 15 steps, CFG 7.5,
-     batch 4: launch counts, identical bytes on a rerun;
+     batch 4: launch counts, identical bytes on a rerun, the UNet prefix at B;
  13. path B: Wukong inpaint 512^2 (9-channel UNet), PLMS-50, CFG 7.5,
-     batch 4, under MDT_WINO_TUNE=dma=0 (Winograd sites on K3);
+     batch 4, under MDT_WINO_TUNE=dma=0 (Winograd sites on K3), the UNet
+     prefix at 2B (no dedup where a channel concat joins the input);
  14. one full-width Taichu-GLIDE base eval (CFG batch 16, 64 px) and one
      super-res eval (batch 8, 256 px), kernel path vs plain path;
  15. the GLIDE cascade (64 px base, 60 ancestral steps, guidance 5.0 ->
      256 px super-res, "fast27" DDIM -> 1024 px SRGAN), batch 8: uint8
      shapes, identical bytes on a rerun, launch counts, s/batch per stage;
+     then under MDT_HOIST=wino, kv and 0 (the encoder K/V and the Winograd
+     U kept or not): the same bytes, s/batch per stage;
  16. the fused sampler tail (K9) vs its plain version and vs the port's own
      unfused super-res step on features caught in a phase-15-sized SR run,
      and in its "sd" mode at the SD2 main-path shape, beside the unfused
@@ -115,9 +126,11 @@ Phases (one line each; any failure raises and exits non-zero):
      CLIP vocab is not in the repository), behind the HTTP front end on a
      thread: 200s with 512^2 PNGs, a co-batched request bytewise equal to
      the same request served alone, launches = batches x (K1 501, K2 1050),
-     no synchronising call inside `dispatch`; s/batch and img/s over three
-     back-to-back batches, request latency, PNG time, and the device's idle
-     gap after each batch (CUDA-only profiler);
+     no synchronising call inside `dispatch`, all with the sampling savings
+     on; s/batch and img/s over three back-to-back batches, request
+     latency, PNG time, and the device's idle gap after each batch
+     (CUDA-only profiler); before that, one batch at a time with the
+     savings off, on, on, off;
  26. GLIDE serving: the engine at batch 8 on the cascade to the SRGAN with
      the placeholder tokens (no sentencepiece model in the repository),
      1024^2 PNGs, row_seeds invariance (co-batched == solo, bytewise),
@@ -373,6 +386,11 @@ ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
     ("unet_64x64_self", 16, 4096, 320, 5, False, 1.0),
     ("unet_32x32_self", 16, 1024, 640, 10, False, 1.0),
     ("unet_ds1_768x768", 8, 9216, 320, 5, False, 1.0),
+    # the first self-attention under CFG-prefix dedup, at batch B: the main
+    # path, img2img 768^2 b4, path A (SD1, D 40); their device ms as well
+    ("unet_64x64_self_dedup", 8, 4096, 320, 5, False, 1.0),
+    ("unet_ds1_768x768_dedup", 4, 9216, 320, 5, False, 1.0),
+    ("wukong_ds1_512_dedup", 4, 4096, 320, 8, True, 1.0),
     ("vae_mid_attn", 8, 4096, 512, 1, True, 1.0),
     ("exact_logits_gt_88", 2, 1024, 320, 5, True, 40.0),
     # SD1 (8 heads): D 40 at ds1, 80 at ds2 of 512^2, 160 at ds4 of 1024^2
@@ -438,6 +456,10 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         d = c // heads
         heads_view = [t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v)]
         library_ms, backend = sdpa_ms(*heads_view, scale)
+        dev_ms = None
+        if label == MAIN_CASE["packed_attention"] or label.endswith("_dedup"):
+            dev_ms = device_ms(lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact),
+                               "packed_attn_kernel")
         k4_ms = None
         if d == 512:   # the VAE mid's yardstick: K4 on (B, N, H, D) views, no copy
             split = [t.view(b, -1, heads, d) for t in (q, k, v)]
@@ -445,7 +467,8 @@ def phase2(gen: torch.Generator, table: dict) -> None:
         bound_ms, bound_by, term = attention_bound(b, heads, n, nk, d)
         log(f"[phase 2] attn {label} B={b} Nq={n} Nk={nk} C={c} heads={heads} D={d} "
             f"exact={exact} max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
+            + (f"device_ms={fmt_ms(dev_ms)} " if dev_ms is not None else "")
+            + f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} sdpa_backend={backend} "
             + (f"k4_ms={k4_ms:.4f} " if k4_ms is not None else "")
             + f"bound_ms={bound_ms:.4f} ({term}) rows={rows} key_tile={key_tile} "
             f"stages={stages} groups={groups} ctas={ctas} waves={ctas / sms:.2f}"
@@ -455,7 +478,7 @@ def phase2(gen: torch.Generator, table: dict) -> None:
             dict(case=label, abs_err=abs_err, rel_err=err, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                  bound_by=bound_by, bound_term=term, sdpa_backend=backend, k4_ms=k4_ms,
-                 ctas=ctas, waves=ctas / sms))
+                 ctas=ctas, waves=ctas / sms, device_ms=dev_ms))
     hold_wgmma_sass("packed_attention", K1_KERNELS, "phase 2", spills=True)
 
 
@@ -598,29 +621,88 @@ def sd2_models(gen: torch.Generator):
                            device="cuda", generator=gen)
 
 
-def winograd_histogram(fn) -> dict:
-    """K2's launches in `fn()` by (B, H, W, C_in, C_out, prologue): the
-    layers reach the wrapper through its module, so a recording stand-in is
-    put there for the call (carrying the launch count, which the wrapper
-    adds to under its module name)."""
-    from minddiffusion_tpu_torch.ops import winograd as wg
-
+def launch_histogram(module, name: str, key, fn) -> dict:
+    """The launches in `fn()` of the kernel wrapper `module.<name>` by
+    `key(*its arguments)`: the layers reach a wrapper through its module,
+    so a recording stand-in is put there for the call (carrying the launch
+    count, which the wrapper adds to under its module name)."""
     hist: dict = {}
-    kernel = wg.conv3x3_winograd
+    kernel = getattr(module, name)
 
-    def recording(x, u, bias, gn_mult=None, gn_add=None):
-        key = (*x.shape, u.shape[-1], gn_mult is not None)
-        hist[key] = hist.get(key, 0) + 1
-        return kernel(x, u, bias, gn_mult, gn_add)
+    def recording(*args, **kw):
+        k = key(*args, **kw)
+        hist[k] = hist.get(k, 0) + 1
+        return kernel(*args, **kw)
 
     recording.launches = kernel.launches
-    wg.conv3x3_winograd = recording
+    setattr(module, name, recording)
     try:
         fn()
     finally:
-        wg.conv3x3_winograd = kernel
+        setattr(module, name, kernel)
         kernel.launches = recording.launches
     return hist
+
+
+def winograd_histogram(fn) -> dict:
+    """K2's launches in `fn()` by (B, H, W, C_in, C_out, prologue)."""
+    from minddiffusion_tpu_torch.ops import winograd as wg
+
+    return launch_histogram(wg, "conv3x3_winograd",
+                            lambda x, u, bias, gn_mult=None, gn_add=None:
+                            (*x.shape, u.shape[-1], gn_mult is not None), fn)
+
+
+def k1_histogram(fn) -> dict:
+    """K1's launches in `fn()` by batch."""
+    from minddiffusion_tpu_torch.ops import flash_attention as fa
+
+    return launch_histogram(fa, "flash_attention_packed", lambda q, *a, **kw: q.shape[0], fn)
+
+
+# The two sampling savings' switches (utils/flags.py): "on" is the default
+# (CFG-prefix dedup and the K/V hoist), "off" drops both and keeps the
+# Winograd U cache, as before either was ported; "dedup" and "hoist" keep
+# one saving alone.
+SAVINGS = {"on": {}, "off": {"MDT_CFG_DEDUP": "0", "MDT_HOIST": "wino"},
+           "dedup": {"MDT_HOIST": "wino"}, "hoist": {"MDT_CFG_DEDUP": "0"}}
+
+
+@contextlib.contextmanager
+def flag_env(**env):
+    """The MDT_* variables set as given for the block (None: unset)."""
+    prev = {k: os.environ.get(k) for k in env}
+
+    def put(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(env)
+    try:
+        yield
+    finally:
+        put(prev)
+
+
+def savings(name: str):
+    """`flag_env` for one SAVINGS entry."""
+    return flag_env(**{"MDT_CFG_DEDUP": None, "MDT_HOIST": None, **SAVINGS[name]})
+
+
+@contextlib.contextmanager
+def prefix_batches(unet):
+    """The batches at which `unet`'s input conv ran in the block (a set):
+    B where CFG-prefix dedup applies, 2B where it does not."""
+    seen: set = set()
+    hook = unet.input_blocks[0][0].register_forward_hook(
+        lambda m, args, out: seen.add(args[0].shape[0]))
+    try:
+        yield seen
+    finally:
+        hook.remove()
 
 
 def phase4(gen: torch.Generator) -> None:
@@ -656,14 +738,42 @@ def phase4(gen: torch.Generator) -> None:
         f"rel_l2={rel_l2:.3e} eps_rms={eps_p.pow(2).mean().sqrt().item():.4f} "
         f"kernel_path_ms={ms:.3f} plain_path_ms={plain_ms:.3f}")
     assert rel_l2 <= REL_TOL, rel_l2
+
+    # CFG-prefix dedup: x at B 8 with the 2B context, against the plain path
+    # on [x; x]. K1's launches by batch, by hand: the first self-attention
+    # (64^2, input_blocks[1]) at B 8, the other four 64^2 and five 32^2 ones
+    # at 16
+    hb = b // 2
+    xh, th = x[:hb], t[:hb]
+    fold = lambda: unet(xh, th, ctx, cfg_fold=True)  # noqa: E731
+    with torch.inference_mode(), unet.hoisted_winograd():
+        reset_counts()
+        k1_batches = k1_histogram(fold)
+        fold_counts = read_counts()
+        eps_f = fold()
+        with ops.plain_reference():
+            eps_d = unet(torch.cat([xh, xh]), torch.cat([th, th]), ctx)
+        torch.cuda.synchronize()
+        fold_ms = cuda_ms(fold, runs=5)
+    assert fold_counts == PER_UNET_EVAL, (fold_counts, PER_UNET_EVAL)
+    assert k1_batches == {hb: 1, b: 9}, k1_batches
+    assert torch.isfinite(eps_f).all() and eps_f.shape == (b, h8, h8, 4)
+    fold_l2 = ((eps_f - eps_d).norm() / eps_d.norm()).item()
+    log(f"[phase 4] unet sd2 cfg_fold x B={hb} context B={b}: K1 launches by batch "
+        f"{k1_batches} (expected {{{hb}: 1, {b}: 9}}) launches={fold_counts} "
+        f"rel_l2_vs_plain_duplicated={fold_l2:.3e} kernel_path_ms={fold_ms:.3f} "
+        f"(without the fold {ms:.3f})")
+    assert fold_l2 <= REL_TOL, fold_l2
     del models, unet
     torch.cuda.empty_cache()
 
 
 def phase5() -> "tuple[dict, float, torch.Tensor]":
-    """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16.
-    Returns the launch counts, the seconds of the second run and the images
-    (on the host)."""
+    """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
+    with the defaults (both sampling savings on), then the savings on and
+    off in one call (SAVINGS, timed in the order off, on, on, off, dedup,
+    hoist). Returns the launch counts, the seconds of the first timed run
+    with the defaults and its images (on the host)."""
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
     batch, size, steps = 8, 512, 50
@@ -682,23 +792,46 @@ def phase5() -> "tuple[dict, float, torch.Tensor]":
         torch.cuda.synchronize()
         return img, time.time() - t0
 
-    reset_counts()
-    img1, first_s = run()
-    counts = read_counts()
-    img2, batch_s = run()
+    with savings("on"):
+        reset_counts()
+        with prefix_batches(models.unet) as prefix:
+            img1, first_s = run()
+        counts = read_counts()
     assert counts == expected, (counts, expected)
+    assert prefix == {batch}, f"the UNet prefix ran at {prefix}, not at B {batch}"
     assert img1.shape == (batch, size, size, 3) and img1.dtype == torch.uint8
-    assert torch.equal(img1, img2), "same generator seed gave different images"
     assert img1.float().std().item() > 1.0, "degenerate image"
+    seconds: dict = {name: [] for name in SAVINGS}
+    images: dict = {}
+    for name in ("off", "on", "on", "off", "dedup", "hoist"):
+        with savings(name):
+            img, sec = run()
+        seconds[name].append(sec)
+        images.setdefault(name, img)
+    batch_s = seconds["on"][0]
+    assert torch.equal(images["on"], img1), "same generator seed gave different images"
     log(f"[phase 5] txt2img sd2 512x512 ddim-50 cfg=9.0 B={batch} bf16 "
         f"launches={counts} expected={expected} first_run_s={first_s:.3f} "
         f"s_per_batch={batch_s:.3f} img_per_s={batch / batch_s:.4f} "
-        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"unet_prefix_batch={sorted(prefix)}")
+    assert torch.equal(images["hoist"], images["off"]), "the K/V hoist alone moved bytes"
+    assert torch.equal(images["dedup"], images["on"]), "the K/V hoist moved bytes under dedup"
+    on, off = images["on"].float(), images["off"].float()
+    img_l2 = ((on - off).norm() / off.norm()).item()
+    log("[phase 5] sampling savings, s_per_batch in the order off, on, on, off, dedup, hoist "
+        "(scripts/savings_ab.py times them in more turns): " + " ".join(
+            f"{name}={','.join(f'{x:.3f}' for x in secs)}" for name, secs in seconds.items())
+        + f"; images on vs off: rel_l2={img_l2:.3e} max_abs={(on - off).abs().max():.0f} "
+        f"of 255; K/V hoist alone and under dedup bytewise equal")
+    assert img_l2 <= REL_TOL, img_l2
     return counts, batch_s, img1.cpu()
 
 
 FLASH_CASES = [  # (label, B, Nq, Nk, heads, D, exact, q multiplier)
     ("unet_ds1_768x1024", 8, 12288, 12288, 5, 64, True, 1.0),
+    # its first site under CFG-prefix dedup, at batch B
+    ("unet_ds1_768x1024_dedup", 4, 12288, 12288, 5, 64, True, 1.0),
     ("vae_mid_768x1024", 4, 12288, 12288, 1, 512, True, 1.0),
     ("vae_mid_768x768", 4, 9216, 9216, 1, 512, True, 1.0),
     # the sites where K1 runs today, for the route's re-derivation (S4)
@@ -873,15 +1006,20 @@ def phase7(models) -> dict:
     img1, first_s = timed(run)
     counts = read_counts()
     img2, batch_s = timed(run)
+    with savings("off"):        # the sampling savings off (SAVINGS)
+        img_off, off_s = timed(run)
     expected = expected_counts(path)
     assert counts == expected, (path, counts, expected)
     assert img1.shape == (batch, height, width, 3) and img1.dtype == torch.uint8
     assert torch.equal(img1, img2), "same generator seed gave different images"
     assert img1.float().std().item() > 1.0, "degenerate image"
+    off_l2 = ((img1.float() - img_off.float()).norm() / img_off.float().norm()).item()
     log(f"[phase 7] {path} launches={counts} expected={expected} "
         f"first_run_s={first_s:.3f} s_per_batch={batch_s:.3f} "
         f"img_per_s={batch / batch_s:.4f} "
-        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; sampling savings "
+        f"off: s_per_batch={off_s:.3f}, images on vs off rel_l2={off_l2:.3e}")
+    assert off_l2 <= REL_TOL, off_l2
     return counts
 
 
@@ -903,9 +1041,11 @@ def phase8(models) -> dict:
     tokens = torch.ones(batch, 77, dtype=torch.long)
     uncond = torch.zeros(batch, 77, dtype=torch.long)
     reset_counts()
-    img, batch_s = timed(lambda: fn(models, init, tokens, uncond,
-                                    torch.Generator(device="cuda").manual_seed(8)))
+    with prefix_batches(models.unet) as prefix:
+        img, batch_s = timed(lambda: fn(models, init, tokens, uncond,
+                                        torch.Generator(device="cuda").manual_seed(8)))
     counts = read_counts()
+    assert prefix == {batch}, f"img2img ran the UNet prefix at {prefix}, not at B {batch}"
     expected = expected_counts(path)
     assert counts == expected, (path, counts, expected)
     assert img.shape == (batch, size, size, 3) and img.dtype == torch.uint8
@@ -914,7 +1054,8 @@ def phase8(models) -> dict:
     assert moved > 5.0, f"output too close to the init image ({moved:.2f})"
     assert img.float().std().item() > 1.0, "degenerate image"
     log(f"[phase 8] {path} launches={counts} expected={expected} "
-        f"s_per_batch={batch_s:.3f} mean_abs_change_vs_init={moved:.2f}")
+        f"s_per_batch={batch_s:.3f} mean_abs_change_vs_init={moved:.2f} "
+        f"unet_prefix_batch={sorted(prefix)}")
     return counts
 
 
@@ -1037,11 +1178,13 @@ def phase12() -> dict:
                      torch.Generator(device="cuda").manual_seed(11))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    img1, first_s = timed(run)
+    with prefix_batches(models.unet) as prefix:
+        img1, first_s = timed(run)
     counts = read_counts()
     img2, batch_s = timed(run)
     expected = expected_counts(path)
     assert counts == expected, (path, counts, expected)
+    assert prefix == {batch}, f"path A ran the UNet prefix at {prefix}, not at B {batch}"
     assert img1.shape == (batch, size, size, 3) and img1.dtype == torch.uint8
     assert torch.equal(img1, img2), "same generator seed gave different images"
     assert img1.float().std().item() > 1.0, "degenerate image"
@@ -1069,24 +1212,19 @@ def phase13() -> dict:
     mask = torch.zeros(batch, size, size, 1, device="cuda")
     mask[:, 128:384, 160:352] = 1.0               # repaint a central box
     tokens, uncond = zh_tokens(batch, 7), zh_tokens(batch, None)
-    prev = os.environ.get("MDT_WINO_TUNE")
-    os.environ["MDT_WINO_TUNE"] = "dma=0"
-    try:
+    with flag_env(MDT_WINO_TUNE="dma=0"), prefix_batches(models.unet) as prefix:
         reset_counts()
         img, batch_s = timed(lambda: fn(models, image, mask, tokens, uncond,
                                         torch.Generator(device="cuda").manual_seed(12)))
         counts = read_counts()
-    finally:
-        if prev is None:
-            del os.environ["MDT_WINO_TUNE"]
-        else:
-            os.environ["MDT_WINO_TUNE"] = prev
     expected = expected_counts(path)
     assert counts == expected, (path, counts, expected)
     assert img.shape == (batch, size, size, 3) and img.dtype == torch.uint8
     assert img.float().std().item() > 1.0, "degenerate image"
+    # inpaint has no CFG-prefix dedup: the channel concat joins the UNet input
+    assert prefix == {2 * batch}, f"inpaint ran the UNet prefix at {prefix}, not at 2B"
     log(f"[phase 13] {path} launches={counts} expected={expected} "
-        f"s_per_batch={batch_s:.3f}")
+        f"s_per_batch={batch_s:.3f} unet_prefix_batch={sorted(prefix)} (no dedup)")
     del models
     torch.cuda.empty_cache()
     return counts
@@ -1194,15 +1332,30 @@ def phase15(models) -> "tuple[dict, torch.Tensor]":
     expected = {k: sum(GLIDE_PER_EVAL[st].get(k, 0) * n for st, n in GLIDE_STEPS.items())
                 for k in KERNELS}
     assert counts == expected, (counts, expected)
+    # MDT_HOIST (utils/flags.py): "1" (the default: the encoder K/V and the
+    # Winograd U), "wino" (U alone), "kv" (K/V alone, the JAX package's
+    # GLIDE default), "0" (neither); each the same bytes
+    hoist_s = {"1": (batch_s, stage_s)}
+    hoist_out = {}
+    for value in ("wino", "kv", "0"):
+        secs: dict = {}
+        with flag_env(MDT_HOIST=value):
+            hoist_out[value], total = timed(lambda: run(secs))
+        hoist_s[value] = (total, secs)
     for stage, side in (("base", 64), ("super_res", 256), ("srgan", 1024)):
         img = out1[stage]
         assert img.shape == (b, side, side, 3) and img.dtype == torch.uint8, (stage, img.shape)
         assert torch.equal(img, out2[stage]), f"{stage}: same seed gave different images"
         assert img.float().std().item() > 1.0, f"{stage}: degenerate image"
+        for value, out in hoist_out.items():
+            assert torch.equal(img, out[stage]), f"{stage}: MDT_HOIST={value} moved bytes"
     log(f"[phase 15] glide_cascade_b{b} launches={counts} expected={expected} "
         f"first_run_s={first_s:.3f} s_per_batch={batch_s:.3f} img_per_s={b / batch_s:.4f} "
         + " ".join(f"{k}_s={v:.3f}" for k, v in stage_s.items())
         + f" peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log("[phase 15] MDT_HOIST in the order 1, wino, kv, 0 (bytes equal): " + "; ".join(
+        f"{value}: s_per_batch={total:.3f} " + " ".join(f"{k}_s={v:.3f}" for k, v in secs.items())
+        for value, (total, secs) in hoist_s.items()))
     return counts, out1["base"]
 
 
@@ -2360,6 +2513,17 @@ def phase25(phase5_s: float) -> dict:
         latencies = sorted(s for _, _, s in replies)
         png_ms = host_ms(lambda: encode_png(co))
 
+        # one batch at a time with the sampling savings off and on (SAVINGS),
+        # in the order off, on, on, off, before the profiler runs
+        walls: dict = {"off": [], "on": []}
+        for name in ("off", "on", "on", "off"):
+            with savings(name):
+                t0 = time.time()
+                with ThreadPoolExecutor(SERVE_BATCH) as pool:
+                    list(pool.map(lambda i: engine.submit(f"load {i}", "", 2000 + i,
+                                                          timeout=600), range(SERVE_BATCH)))
+                walls[name].append(time.time() - t0)
+
         # saturation: 3 full batches back to back, straight into the engine
         n = 3 * SERVE_BATCH
         torch.cuda.synchronize()
@@ -2384,7 +2548,10 @@ def phase25(phase5_s: float) -> dict:
     log(f"[phase 25] saturation: {n} requests, 3 batches in {wall:.3f} s: "
         f"s_per_batch={wall / 3:.3f} (phase 5: {phase5_s:.3f}) img_per_s={n / wall:.4f} "
         f"device_idle_share={idle:.4f} gaps_after_each_batch_ms="
-        + ",".join(f"{g:.3f}" for g in gaps))
+        + ",".join(f"{g:.3f}" for g in gaps)
+        + "; one batch at a time with the savings off, on, on, off: s_per_batch "
+        + ", ".join(f"{name}={','.join(f'{x:.3f}' for x in secs)}"
+                    for name, secs in walls.items()))
     del engine, adapter
     torch.cuda.empty_cache()
     return counts
@@ -3080,48 +3247,85 @@ def main() -> int:
         **{kname: dict(route="cuda", source=DIAG_SOURCE, replaces=replaces, cases=[],
                        held_in_phase=28) for kname, (_, replaces) in DIAG_ROWS.items()},
     }
+    phase_s: dict = {}
+
+    def lap(phase: str) -> None:
+        """Record the seconds the phases since the last lap took."""
+        phase_s[phase] = round(time.time() - t_start - sum(phase_s.values()), 1)
+
     name = phase0()
+    lap("0")
     phase1()
+    lap("1")
     phase2(gen, table)
+    lap("2")
     phase3(gen, table)
+    lap("3")
     phase4(gen)
+    lap("4")
     main_counts, phase5_s, phase5_images = phase5()
+    lap("5")
     by_path = {"txt2img_512_ddim50_b8": main_counts}
     phase6(gen, table)
+    lap("6")
     models = sd2_models(torch.Generator(device="cuda").manual_seed(2))
     by_path["txt2img_768x1024_ddim50_b4"] = phase7(models)
+    lap("7")
     by_path["img2img_768_s075_ddim50_b4"] = phase8(models)
+    lap("8")
     by_path["txt2img_512_dpm20_b8"] = phase9(models)
+    lap("9")
     del models
     torch.cuda.empty_cache()
     phase10(gen, table)
+    lap("10")
     phase11(gen)
+    lap("11")
     by_path["wukong_txt2img_512_dpm15_b4"] = phase12()
+    lap("12")
     by_path["wukong_inpaint_512_plms50_b4_dma0"] = phase13()
+    lap("13")
     glide = glide_models()
     phase14(glide, gen)
+    lap("14")
     by_path["glide_cascade_b8"], img64 = phase15(glide)
+    lap("15")
     phase16(glide, img64, gen, table)
+    lap("16")
     del glide
     torch.cuda.empty_cache()
     phase17(gen, table)
+    lap("17")
     phase18(gen, table)
+    lap("18")
     by_path["sd2_finetune_512_b3"] = phase19(gen)
+    lap("19")
     with tempfile.TemporaryDirectory() as tmp:
         by_path["wukong_lora_512_b3_3steps"], by_path["wukong_dreambooth_512_b3_1step"] = \
             phase20(tmp)
+    lap("20")
     phase21(gen, table)
+    lap("21")
     phase22(gen, table)
+    lap("22")
     by_path.update(phase23(gen))
+    lap("23")
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(phase24(tmp))
+    lap("24")
     by_path["serve_sd2_512_ddim50_b8"] = phase25(phase5_s)
+    lap("25")
     by_path["serve_glide_cascade_b8"] = phase26()
+    lap("26")
     phase27(gen, table)
+    lap("27")
     phase28(gen, table)
+    lap("28")
     phase29(phase5_images)
+    lap("29")
     with tempfile.TemporaryDirectory() as tmp:
         phase30(tmp)
+    lap("30")
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])
@@ -3146,7 +3350,8 @@ def main() -> int:
             bound_term=main_case.get("bound_term", "mma" if main_case["bound_by"]
                                      == "operations" else "bytes"),
             launches_by_path=runs, **extra))
-    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s; seconds by "
+        f"phase: {phase_s}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

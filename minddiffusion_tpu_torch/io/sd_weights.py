@@ -118,6 +118,8 @@ def unet_translator(config) -> Callable[[Tuple[str, ...]], Entry]:
         head = parts.pop(0)
         if head in top:
             return _leaf(leaf, *top[head])
+        if head == "label_emb" and leaf == "embedding":    # nn.Embed (num_classes, 4 mc)
+            return "label_emb.weight", "ident"
 
         def res_leaf(base):
             m = _RES.get(parts[0])

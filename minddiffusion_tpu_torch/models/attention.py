@@ -13,6 +13,13 @@ map computes in its input's dtype (`layers.Linear`). With `enable_lora`,
 to_q, to_k, to_v and to_out.0 of every CrossAttention carry a rank-r
 adapter (models/lora.LoRALinear: state names `<proj>.lora_a` (in, r),
 `<proj>.lora_b` (r, out) beside the base `<proj>.weight`).
+
+Two sampling savings of the JAX package: inside a `layers.hoisted` scope
+a cross-attention computes to_k(context) and to_v(context) once for the
+context tensor it is given (LoRA's projections the same way), and with
+`cfg_fold` the first block runs its self-attention at batch B and
+duplicates x to 2B just before the cross-attention, where the two guidance
+halves first differ (models/unet.py).
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from minddiffusion_tpu_torch.models.layers import Conv1x1, GroupNorm32, LayerNormFp32, Linear
+from minddiffusion_tpu_torch.core.cfg import cfg_dup
+from minddiffusion_tpu_torch.models.layers import (
+    Conv1x1, GroupNorm32, LayerNormFp32, Linear, reuse)
 from minddiffusion_tpu_torch.models.lora import LoRALinear
 from minddiffusion_tpu_torch.ops.attention import packed_attention
 
@@ -46,12 +55,17 @@ class CrossAttention(nn.Module):
         self.to_k = proj(context_dim or query_dim, inner, False)
         self.to_v = proj(context_dim or query_dim, inner, False)
         self.to_out = nn.Sequential(proj(inner, query_dim, True), nn.Identity())
+        self.kv_cache: Optional[dict] = None     # a dict inside layers.hoisted
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
-        out = packed_attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx),
-                               self.heads, impl=self.attn_impl)
+        q = self.to_q(x)
+        if context is None:
+            k, v = self.to_k(x), self.to_v(x)
+        else:
+            k, v = reuse(self.kv_cache, context,
+                         lambda: (self.to_k(context), self.to_v(context)))
+        out = packed_attention(q, k, v, self.heads, impl=self.attn_impl)
         return self.to_out(out)
 
 
@@ -87,8 +101,11 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNormFp32(dim)
         self.norm3 = LayerNormFp32(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                cfg_fold: bool = False) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
+        if cfg_fold:     # the halves first differ where the context enters
+            x = cfg_dup(x)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -111,9 +128,12 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = proj(inner, in_channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                cfg_fold: bool = False) -> torch.Tensor:
+        """`cfg_fold`: x at batch B, context at 2B; block 0 widens to 2B
+        after its self-attention, and the residual is duplicated."""
         b, h, w, c = x.shape
         t = self.proj_in(self.norm(x).reshape(b, h * w, c))
-        for block in self.transformer_blocks:
-            t = block(t, context)
-        return self.proj_out(t).reshape(b, h, w, c) + x
+        for i, block in enumerate(self.transformer_blocks):
+            t = block(t, context, cfg_fold=cfg_fold and i == 0)
+        return self.proj_out(t).reshape(-1, h, w, c) + (cfg_dup(x) if cfg_fold else x)

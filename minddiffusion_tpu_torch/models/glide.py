@@ -14,7 +14,8 @@ v come back fp32.
     embedding where mask == 0; `transformer_proj` of the last token.
   * GlideAttentionBlock: GN -> qkv -> [encoder K/V; spatial K/V] ->
     `packed_attention(block_q=1024, min_q=MDT_GLIDE_TUNE attn_route)` ->
-    proj_out -> residual.
+    proj_out -> residual. Inside a `hoisted` scope the encoder K/V of one
+    xf encoding are computed once (layers.reuse).
   * The up path joins each skip by channel concatenation.
   * Super-res: the low-res image bilinearly resized in fp32 (half-pixel
     centres, edge-clamped: torch's align_corners=False equals
@@ -37,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from minddiffusion_tpu_torch.models.layers import (
-    Conv3x3, GroupNorm32, LayerNormFp32, Linear, hoisted_winograd, timestep_embedding)
+    Conv3x3, GroupNorm32, LayerNormFp32, Linear, hoisted, hoisted_winograd, reuse,
+    timestep_embedding)
 from minddiffusion_tpu_torch.models.unet import ResBlock
 from minddiffusion_tpu_torch.ops.attention import packed_attention
 from minddiffusion_tpu_torch.utils.flags import flags
@@ -117,6 +119,7 @@ class GlideAttentionBlock(nn.Module):
         self.qkv = Linear(channels, 3 * channels)
         if encoder_channels is not None:
             self.encoder_kv = Linear(encoder_channels, 2 * channels)
+            self.kv_cache: Optional[dict] = None    # a dict inside layers.hoisted
         self.proj_out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor,
@@ -124,7 +127,8 @@ class GlideAttentionBlock(nn.Module):
         b, h, w, c = x.shape
         q, k, v = self.qkv(self.norm(x).reshape(b, h * w, c)).chunk(3, dim=-1)
         if encoder_out is not None:
-            ek, ev = self.encoder_kv(encoder_out.to(x.dtype)).chunk(2, dim=-1)
+            ek, ev = reuse(self.kv_cache, encoder_out,
+                           lambda: self.encoder_kv(encoder_out.to(x.dtype)).chunk(2, dim=-1))
             k, v = torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1)
         out = packed_attention(q, k, v, self.heads, impl=self.attn_impl,
                                block_q=GLIDE_BLOCK_Q, min_q=flags().glide_attn_route)
@@ -288,6 +292,14 @@ class Text2ImUNet(nn.Module):
 
     def hoisted_winograd(self):
         return hoisted_winograd(self)
+
+    def hoisted(self, kv: bool = True):
+        """The sampling run's caches that MDT_HOIST allows: the encoder K/V
+        (`kv` and "kv") and the Winograd transforms ("wino"; under "1" too,
+        unlike the JAX package). A stage whose encoding changes every step
+        passes kv=False."""
+        f = flags()
+        return hoisted(self, wino=f.hoist_wino_glide, kv=kv and f.hoist_kv)
 
 
 class SuperResText2ImUNet(Text2ImUNet):

@@ -18,12 +18,16 @@ without a cached U, differentiated through the direct conv
 Every layer computes in its input's dtype and casts its weights to it at
 use (`Linear`, the convs), so fp32 master weights run bf16 compute, as the
 JAX package's modules do with dtype=bf16, param_dtype=fp32.
+
+`hoisted` opens the caches of one sampling run: the Winograd transform U of
+each gated conv and, through `reuse`, the cross-attention K/V of a constant
+context (models/attention.CrossAttention, models/glide.GlideAttentionBlock).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, TypeVar
 
 import torch
 import torch.nn.functional as F
@@ -282,19 +286,46 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
+T = TypeVar("T")
+
+
+def reuse(cache: Optional[dict], key: torch.Tensor, compute: Callable[[], T]) -> T:
+    """compute(); or, while a `hoisted` scope holds `cache` (a dict), the
+    value last computed in the scope for this very tensor `key`. The key is
+    the tensor object, held by the cache, so no other tensor can take its
+    id while the entry lives and no device value is read. A call with
+    another tensor computes anew and replaces the entry; where autograd
+    records, nothing is reused. A key changed in place inside the scope is
+    not seen: the pipelines' contexts are not."""
+    if cache is None or torch.is_grad_enabled():
+        return compute()
+    if cache.get("key") is not key:
+        cache["key"], cache["value"] = key, compute()
+    return cache["value"]
+
+
 @contextlib.contextmanager
-def hoisted_winograd(module: nn.Module):
-    """Keep the Winograd transform U of every Winograd-routed stride-1
-    conv of `module` from its first call on, for a whole sampling run,
-    instead of computing it in every conv call."""
-    convs = [m for m in module.modules() if isinstance(m, Conv3x3) and m.stride == 1]
-    for m in convs:
-        m.wino_cache = {}
+def hoisted(module: nn.Module, wino: bool = True, kv: bool = True):
+    """For one sampling run, keep from its first call on the Winograd
+    transform U of every Winograd-routed stride-1 conv of `module` (`wino`)
+    and the value each module with a `kv_cache` computes from a constant
+    tensor (`kv`: the cross-attention K/V, `reuse`), instead of computing
+    them at every step. The caches are emptied when the scope ends."""
+    sites = [(m, "wino_cache") for m in module.modules()
+             if wino and isinstance(m, Conv3x3) and m.stride == 1]
+    sites += [(m, "kv_cache") for m in module.modules() if kv and hasattr(m, "kv_cache")]
+    for m, attr in sites:
+        setattr(m, attr, {})
     try:
         yield
     finally:
-        for m in convs:
-            m.wino_cache = None
+        for m, attr in sites:
+            setattr(m, attr, None)
+
+
+def hoisted_winograd(module: nn.Module):
+    """`hoisted` for the Winograd transforms alone."""
+    return hoisted(module, wino=True, kv=False)
 
 
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -16,6 +16,11 @@ into (scale, shift) and feeds GN(h) (1 + scale) + shift to conv_out as the
 affine (m0 (1 + scale), a0 (1 + scale) + shift); `up` / `down` normalize
 first, then resample h and x (nearest 2x / 2x2 average), then run conv_in
 with no prologue.
+
+`num_classes` adds the LDM class-label embedding (`label_emb`, the 'adm'
+conditioning) to the time embedding; `y` (B,) int labels. `cfg_fold` is
+the CFG-prefix dedup of the JAX package (`forward`). `hoisted` opens the
+sampling run's caches that MDT_HOIST allows (layers.hoisted).
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from minddiffusion_tpu_torch.core.cfg import cfg_dup
 from minddiffusion_tpu_torch.models.attention import SpatialTransformer
 from minddiffusion_tpu_torch.models.layers import (
-    Conv1x1, Conv3x3, GroupNorm32, Linear, avg_pool_2x, hoisted_winograd,
-    nearest_upsample_2x, timestep_embedding)
+    Conv1x1, Conv3x3, GroupNorm32, Linear, avg_pool_2x, hoisted, hoisted_winograd,
+    nearest_upsample_2x, reuse, timestep_embedding)
+from minddiffusion_tpu_torch.utils.flags import flags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,7 @@ class UNetConfig:
     context_dim: int = 1024
     use_linear_in_transformer: bool = True
     attn_impl: Optional[str] = None
+    num_classes: Optional[int] = None
     enable_lora: bool = False
     lora_rank: int = 4
     lora_alpha: float = 4.0
@@ -139,6 +147,9 @@ class UNetModel(nn.Module):
         emb_dim = mc * 4
         self.time_embed = nn.Sequential(Linear(mc, emb_dim), nn.SiLU(),
                                         Linear(emb_dim, emb_dim))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, emb_dim)
+        self.kv_cache: Optional[dict] = None     # the context's cast, inside `hoisted`
         lora = (dict(rank=cfg.lora_rank, alpha=cfg.lora_alpha) if cfg.enable_lora
                 else None)
 
@@ -180,32 +191,68 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  Conv3x3(ch, cfg.out_channels))
 
-    @staticmethod
-    def _run(block: nn.ModuleList, h, emb, context):
-        for layer in block:
-            if isinstance(layer, ResBlock):
-                h = layer(h, emb)
-            elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
-            else:
-                h = layer(h)
-        return h
-
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None, cfg_fold: bool = False,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`cfg_fold` (CFG-prefix dedup): x and timesteps at batch B, context
+        the [uncond; cond] fold at 2B. The network runs at B up to the first
+        spatial transformer's cross-attention, where the halves first
+        differ, then at 2B: the output is the model applied to [x; x] with
+        the prefix computed once. It needs a context; class labels differ
+        by half, so `y` refuses it."""
+        cfg = self.config
+        if cfg_fold:
+            if context is None:
+                raise ValueError("cfg_fold requires a cross-attention context")
+            if y is not None:
+                raise ValueError("cfg_fold is incompatible with class labels")
         dtype = self.compute_dtype or self.time_embed[0].weight.dtype
-        t_emb = timestep_embedding(timesteps, self.config.model_channels)
+        t_emb = timestep_embedding(timesteps, cfg.model_channels)
         emb = self.time_embed(t_emb.to(dtype))
-        h, context = x.to(dtype), context.to(dtype)
+        if cfg.num_classes is not None:
+            if y is None:
+                raise ValueError("num_classes is set but no class labels were given")
+            emb = emb + self.label_emb(torch.as_tensor(y).to(emb.device)).to(dtype)
+        h = x.to(dtype)
+        if context is not None:
+            context = reuse(self.kv_cache, context, lambda: context.to(dtype))
+        fold = cfg_fold
+
+        def run(block: nn.ModuleList, h):
+            nonlocal emb, fold
+            for layer in block:
+                if isinstance(layer, ResBlock):
+                    h = layer(h, emb)
+                elif isinstance(layer, SpatialTransformer):
+                    h = layer(h, context, cfg_fold=fold)
+                    if fold:
+                        # a batch-1 emb broadcasts against both halves as it is
+                        emb = cfg_dup(emb) if emb.shape[0] > 1 else emb
+                        fold = False
+                else:
+                    h = layer(h)
+            return h
+
         hs = []
         for block in self.input_blocks:
-            h = self._run(block, h, emb, context)
+            h = run(block, h)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context)
+        h = run(self.middle_block, h)
+        if fold:
+            raise ValueError("cfg_fold requires at least one spatial transformer")
         for block in self.output_blocks:
-            h = self._run(block, torch.cat([h, hs.pop()], dim=-1), emb, context)
+            skip = hs.pop()
+            if skip.shape[0] != h.shape[0]:     # pushed before the fold, at B
+                skip = cfg_dup(skip)
+            h = run(block, torch.cat([h, skip], dim=-1))
         h = self.out[2](F.silu(self.out[0](h)))
         return h.float()
+
+    def hoisted(self):
+        """The sampling run's caches that MDT_HOIST allows: the Winograd
+        transforms (all but "0") and the cross-attention K/V ("kv")."""
+        f = flags()
+        return hoisted(self, wino=f.hoist, kv=f.hoist_kv)
 
     def hoisted_winograd(self):
         """Keep the Winograd transform U of every Winograd-routed conv from

@@ -275,7 +275,8 @@ class GlideCascadePipeline:
                    else _explicit("noise", noise, shape, dev))
             if step_noise is not None:
                 step_noise = _explicit("step_noise", step_noise, (n_steps, *shape), dev)
-            with base.hoisted_winograd():
+            # per_step re-encodes the uncond half every step: no K/V to keep
+            with base.hoisted(kv=uncond_mode == "per_generation"):
                 return ancestral.p_sample_loop(model_fn, x_T, models.base_schedule,
                                                generator, noise=step_noise,
                                                step_args=step_args)
@@ -294,7 +295,7 @@ class GlideCascadePipeline:
             def model_fn(x, t):
                 return sr.denoise(x, t, low_res, xf_proj, xf_out)
 
-            with sr.hoisted_winograd():
+            with sr.hoisted():
                 return ancestral.ddim_sample_loop(model_fn, x_T, models.sr_schedule)
 
         @torch.inference_mode()

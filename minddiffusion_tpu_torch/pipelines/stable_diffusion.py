@@ -9,8 +9,14 @@ minddiffusion_tpu/pipelines/stable_diffusion.py).
     images = fn(models, tokens, uncond_tokens, generator)  # uint8 (B, H, W, 3)
 
 One txt2img call: CLIP encode of the CFG-folded [uncond; cond] tokens, the
-sampler's step loop over the guided UNet (Winograd transforms hoisted once
-per call), VAE decode, uint8 quantization. Explicit `noise=` (B, H/8, W/8, 4)
+sampler's step loop over the guided UNet, VAE decode, uint8 quantization.
+The two sampling savings of the JAX package are on by default: the UNet
+runs its prefix once at batch B (CFG-prefix dedup, `cfg_fold`) in txt2img
+and img2img, and every pipeline keeps the cross-attention K/V and the
+Winograd transforms for the whole sampler run (`UNetModel.hoisted`). Their
+switches, MDT_CFG_DEDUP and MDT_HOIST (utils/flags.py), are read at each
+call. inpaint runs the UNet at 2B throughout, as the JAX package does
+where a channel concat joins the UNet input. Explicit `noise=` (B, H/8, W/8, 4)
 replaces the draw from `generator`. img2img encodes the init image first and
 starts DDIM mid-chain; its explicit `enc_noise=` / `noise=` replace the
 posterior draw and the q_sample noise. inpaint (the "wukong-inpaint" family's
@@ -25,6 +31,7 @@ the 9-channel UNet); all share the KL-VAE and the linear schedule.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -41,6 +48,7 @@ from minddiffusion_tpu_torch.models.layers import (
 from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from minddiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from minddiffusion_tpu_torch.samplers import ddim, dpm_solver, plms
+from minddiffusion_tpu_torch.utils.flags import flags
 
 SAMPLERS = ("ddim", "plms", "dpm", "dpm_singlestep", "dpm_adaptive")
 FAMILIES = {  # family: (UNet preset, text encoder preset)
@@ -201,6 +209,15 @@ def _run_sampler(sampler: str, eps_fn, x_T: torch.Tensor, schedule: DiffusionSch
     raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
 
 
+def _guided_unet(unet: UNetModel, ctx2: torch.Tensor, guidance_scale: float) -> Callable:
+    """The CFG-guided eps model of `unet`; under MDT_CFG_DEDUP (on by
+    default) the UNet's prefix runs once at batch B (`cfg_fold`)."""
+    if flags().cfg_dedup:
+        return cfg_lib.wrap_model(functools.partial(unet, cfg_fold=True), ctx2,
+                                  guidance_scale, dedup=True)
+    return cfg_lib.wrap_model(unet, ctx2, guidance_scale)
+
+
 def _explicit(name: str, value, shape: tuple, device) -> torch.Tensor:
     if tuple(value.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(value.shape)}")
@@ -230,10 +247,10 @@ class StableDiffusionPipeline:
             dev = models.device
             tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
             ctx2 = models.text_encoder(tok2.to(dev))
-            eps_fn = cfg_lib.wrap_model(models.unet, ctx2, guidance_scale)
+            eps_fn = _guided_unet(models.unet, ctx2, guidance_scale)
             x_T = (torch.randn(shape, generator=generator, device=dev) if noise is None
                    else _explicit("noise", noise, shape, dev))
-            with models.unet.hoisted_winograd():
+            with models.unet.hoisted():
                 return _run_sampler(sampler, eps_fn, x_T, models.schedule,
                                     num_steps, generator)
 
@@ -286,7 +303,7 @@ class StableDiffusionPipeline:
             shape = (b, h8, w8, 4)
             tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
             ctx2 = models.text_encoder(tok2.to(dev))
-            eps_fn = cfg_lib.wrap_model(models.unet, ctx2, guidance_scale)
+            eps_fn = _guided_unet(models.unet, ctx2, guidance_scale)
             moments = models.vae.encode(init_image.to(dev))
             eps = None if enc_noise is None else _explicit("enc_noise", enc_noise, shape, dev)
             z0 = latents.scale_latents(distributions.sample(moments, generator, eps),
@@ -294,7 +311,7 @@ class StableDiffusionPipeline:
             noise = (torch.randn(shape, generator=generator, device=dev) if noise is None
                      else _explicit("noise", noise, shape, dev))
             x_mid = models.schedule.q_sample(z0, torch.full((b,), t_at), noise)
-            with models.unet.hoisted_winograd():
+            with models.unet.hoisted():
                 return _run_sampler("ddim", eps_fn, x_mid, models.schedule,
                                     num_steps, generator, t_start_index=t_enc)
 
@@ -366,7 +383,7 @@ class StableDiffusionPipeline:
             eps_fn = cfg_lib.wrap_model(unet_9ch, ctx2, guidance_scale)
             x_T = (torch.randn(shape, generator=generator, device=dev) if noise is None
                    else _explicit("noise", noise, shape, dev))
-            with models.unet.hoisted_winograd():
+            with models.unet.hoisted():
                 return _run_sampler(sampler, eps_fn, x_T, models.schedule, num_steps,
                                     generator)
 

@@ -1,5 +1,18 @@
-"""The port's copy of two tuning flags of minddiffusion_tpu/utils/flags.py.
+"""The port's copy of four flags of minddiffusion_tpu/utils/flags.py.
 
+    MDT_CFG_DEDUP=0     opt out of CFG-prefix dedup: by default the SD
+                        txt2img and img2img pipelines run the UNet prefix
+                        (everything before the first cross-attention) once
+                        at batch B instead of on the duplicated 2B batch
+    MDT_HOIST=...       "1" (the default) or "force": keep the sampling
+                        run's constants from their first call on: the
+                        cross-attention K/V of the text context (SD's
+                        `to_k` / `to_v`, GLIDE's `encoder_kv`) and the
+                        Winograd transforms U of the conv weights (SD and
+                        GLIDE); "0": none of them; or a comma list of
+                        "kv" and "wino": "kv" keeps the K/V, "wino" GLIDE's
+                        U (SD keeps its U under every value but "0", as in
+                        the JAX package); "wino" alone drops the K/V
     MDT_WINO_TUNE=...   comma k=v conv-kernel tuning: hmax=<int>, cmin=<int>
                         (the Winograd shape gate's ceiling on min(H, W) and
                         floor on C_in), dma=0 (the gathered-tile kernel K3
@@ -8,6 +21,14 @@
                         attention sites take the packed kernel K1 from this
                         many query and key tokens on, instead of the
                         1024 / 512 gates)
+
+The JAX package hoists through a capture pass before its sampler's scan,
+which it runs only on a TPU unless MDT_HOIST=force (an XLA constant
+matter). The port keeps its constants in caches that the pipelines open for
+one sampling run (models/layers.hoisted), so "1" and "force" both hoist, on
+every device. One default differs on purpose: under "1" the port's GLIDE
+keeps its Winograd U cache, which the JAX package turned off on a TPU
+measurement.
 
 `chain` is accepted with the JAX package's grammar and switches nothing:
 merged resblock chaining is a TPU-only rewrite the port does not have. The
@@ -26,7 +47,7 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
-_KEYS = ("MDT_WINO_TUNE", "MDT_GLIDE_TUNE")
+_KEYS = ("MDT_WINO_TUNE", "MDT_GLIDE_TUNE", "MDT_CFG_DEDUP", "MDT_HOIST")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +57,10 @@ class Flags:
     wino_hmax: Optional[int] = None
     wino_cmin: Optional[int] = None
     glide_attn_route: Optional[int] = None
+    cfg_dedup: bool = True
+    hoist: bool = True              # SD's Winograd U cache; False only under "0"
+    hoist_kv: bool = True
+    hoist_wino_glide: bool = True
 
 
 def _entries(raw: str, var: str, keys: str, example: str):
@@ -84,6 +109,25 @@ def parse_glide_tune(raw: str) -> dict:
     return out
 
 
+def parse_hoist(raw: str) -> dict:
+    """MDT_HOIST -> field overrides; unset or empty is the default "1"."""
+    raw = raw.strip()
+    if raw in ("", "1", "force"):
+        return {}
+    if raw == "0":
+        return dict(hoist=False, hoist_kv=False, hoist_wino_glide=False)
+    parts = {p.strip() for p in raw.split(",")}
+    if not parts <= {"kv", "wino"}:
+        raise ValueError(f"MDT_HOIST {raw!r}: expected 1, 0, force or a comma list "
+                         "of kv and wino (e.g. 'kv' or 'kv,wino')")
+    return dict(hoist_kv="kv" in parts, hoist_wino_glide="wino" in parts)
+
+
+def parse_cfg_dedup(raw: str) -> dict:
+    """MDT_CFG_DEDUP -> field overrides: "0" opts out, anything else is on."""
+    return dict(cfg_dedup=raw != "0")
+
+
 _cache: Tuple[Optional[tuple], Flags] = (None, Flags())
 
 
@@ -92,5 +136,6 @@ def flags() -> Flags:
     global _cache
     key = tuple(os.environ.get(k, "") for k in _KEYS)
     if _cache[0] != key:
-        _cache = (key, Flags(**parse_wino_tune(key[0]), **parse_glide_tune(key[1])))
+        _cache = (key, Flags(**parse_wino_tune(key[0]), **parse_glide_tune(key[1]),
+                             **parse_cfg_dedup(key[2]), **parse_hoist(key[3])))
     return _cache[1]

@@ -974,3 +974,68 @@ def test_attn_diag_refusals(cuda):
         attn_diag.diag_bf16s(q, q, q, 4)
     with pytest.raises(ValueError, match="mode"):
         attn_diag.diag_kt(q, q, q, 2, "exp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,exact", [(8, 5, False), (4, 8, True)])
+def test_packed_attention_kernel_at_the_dedup_prefix_shape(cuda, b, heads, exact):
+    """K1 at the first self-attention's batch under CFG-prefix dedup: B 8
+    at SD2's ds1 (5 x 64, raw exp) and B 4 at SD1's (8 x 40, exact)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(b, 4096, 320, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    scale = (320 // heads) ** -0.5
+    ref = flash_attention.packed_attention_plain(q, k, v, heads, scale, exact)
+    got = flash_attention.flash_attention_packed(q, k, v, heads, scale, exact)
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cfg_fold_on_the_kernel_path_matches_the_plain_path(cuda):
+    """A small SD2 UNet (SD2's first two levels: 320 and 640 channels, heads
+    of 64, 64^2 latents, so the first self-attention takes K1 at batch B,
+    as on the main path): cfg_fold on the kernel path
+    against the plain path on the duplicated batch, and the K1 launches by
+    batch (the fold's site at B, the rest at 2B)."""
+    from minddiffusion_tpu_torch import ops
+    from minddiffusion_tpu_torch.models.layers import cast_for_inference
+    from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import init_random_
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cfg = UNetConfig(model_channels=320, channel_mult=(1, 2), num_res_blocks=1,
+                     attention_resolutions=(1, 2), num_head_channels=64, context_dim=64,
+                     use_linear_in_transformer=True, attn_impl="fast")
+    with torch.device("meta"):
+        unet = UNetModel(cfg)
+    unet.to_empty(device=cuda)
+    init_random_(unet, g)
+    unet = cast_for_inference(unet, torch.bfloat16).eval()
+    b = 2
+    x = torch.randn(b, 64, 64, 4, generator=g, device=cuda)
+    t = torch.tensor([20, 700], device=cuda)
+    ctx2 = torch.randn(2 * b, 77, 64, generator=g, device=cuda)
+    batches = []
+    kernel = flash_attention.flash_attention_packed
+
+    def recording(q, *args, **kw):
+        batches.append(q.shape[0])
+        return kernel(q, *args, **kw)
+
+    # the wrapper counts its launches under its module name, now the stand-in's
+    recording.launches = kernel.launches
+    flash_attention.flash_attention_packed = recording
+    try:
+        with torch.inference_mode():
+            folded = unet(x, t, ctx2, cfg_fold=True)
+    finally:
+        flash_attention.flash_attention_packed = kernel
+        kernel.launches = recording.launches
+    with torch.inference_mode(), ops.plain_reference():
+        ref = unet(torch.cat([x, x]), torch.cat([t, t]), ctx2)
+    # 64^2 (4096 tokens): the down and two up self-attentions; 32^2 (1024)
+    # the down, the mid and two up ones
+    assert sorted(batches) == [b] + [2 * b] * 6
+    rel = ((folded - ref).norm() / ref.norm()).item()
+    assert torch.isfinite(folded).all() and rel <= 2e-2, rel
