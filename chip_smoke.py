@@ -10,7 +10,8 @@ Phases (one line each; any failure raises and exits non-zero):
      attn_variants.cu, K12's ten modes and bf16s's packed-exp instantiation
      attn_diag.cu; the wgmma kernels include csrc/hopper.cuh, the attention
      kernels csrc/attn_core.cuh too, K1's and K4's csrc/attn512.cuh), one
-     nvcc each, all at once;
+     nvcc each, all at once, and start beside them the compiles of the
+     `scripts/ptxas_report.py` reports that later phases hold;
   2. packed-attention kernel (K1) vs its plain version at the main-path
      shapes (the first self-attention at batch B too, where CFG-prefix
      dedup runs it) and every head width (D 40, 64, 80, 160, 512), ragged Nq and
@@ -127,10 +128,10 @@ Phases (one line each; any failure raises and exits non-zero):
      thread: 200s with 512^2 PNGs, a co-batched request bytewise equal to
      the same request served alone, launches = batches x (K1 501, K2 1050),
      no synchronising call inside `dispatch`, all with the sampling savings
-     on; s/batch and img/s over three back-to-back batches, request
+     on; s/batch and img/s over two back-to-back batches, request
      latency, PNG time, and the device's idle gap after each batch
      (CUDA-only profiler); before that, one batch at a time with the
-     savings off, on, on, off;
+     savings off, on;
  26. GLIDE serving: the engine at batch 8 on the cascade to the SRGAN with
      the placeholder tokens (no sentencepiece model in the repository),
      1024^2 PNGs, row_seeds invariance (co-batched == solo, bytewise),
@@ -174,7 +175,21 @@ Phases (one line each; any failure raises and exits non-zero):
  30. export at full width: SD2's random weights through
      `cli/export_weights` to .safetensors and back through `cli.common.
      build_sd`; one UNet eval bitwise equal before and after, and
-     `cli/serve.check_ckpt` takes the file.
+     `cli/serve.check_ckpt` takes the file;
+ 31. SD2 finetune 512^2 at full width on the process grid (parallel/),
+     on the one card: two spawned ranks in a gloo group over CUDA tensors
+     (NCCL refuses two ranks on one GPU) take one step at dp 2 and one at
+     fsdp 2 (FSDP2 over the UNet's blocks and the text encoder) on a
+     global batch of 4, 2 rows a rank, warmup 0, fixed draws, each against
+     the one-process step on the same batch and draws: loss and grad_norm
+     within 1e-2 relative, the UNet update within GRID_UPDATE_TOL relative
+     L2, the all-zero UNet gradients as many, K1 11 and K2 21 a rank a
+     step, s/step and peak memory a rank; then `python -m
+     torch.distributed.run --nproc_per_node 1 -m
+     minddiffusion_tpu_torch.cli.train --family sd2 --dp -1 --fsdp 1` (NCCL,
+     world 1, 512^2, batch 2, 2 steps, a stand-in CLIP merges file): its
+     backend, its loss, one checkpoint written by rank 0 and read back
+     by `build_sd`.
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
@@ -373,13 +388,42 @@ def phase0() -> str:
     return name
 
 
+# The sources whose `scripts/ptxas_report.py` report later phases hold (2, 6,
+# 16, 17, 18, 21, 22, 27, 28). Phase 1 starts each report's compile beside
+# the builds, and a phase waits for its report (`sass_report`).
+SASS_SOURCES = ("packed_attention", "flash_attention", "glide_tail", "gn_stats", "fused_ff",
+                "conv3x3", "winograd43", "attn_variants", "attn_diag")
+SASS_PENDING: dict = {}     # source -> the future of its report
+
+
+def ptxas_report(source: str) -> str:
+    return run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
+                                    "ptxas_report.py"), source])
+
+
+def sass_report(source: str) -> str:
+    """`scripts/ptxas_report.py <source>`'s output: the one phase 1 started,
+    or a fresh one."""
+    pending = SASS_PENDING.pop(source, None)
+    report = pending.result() if pending is not None else ptxas_report(source)
+    SASS_REPORTS[source] = report
+    return report
+
+
 def phase1() -> None:
+    """Build every source, one nvcc each, all at once; the ptxas reports of
+    SASS_SOURCES (another nvcc each, with -Xptxas -v) start beside them."""
     from minddiffusion_tpu_torch.ops import _build
 
     t0 = time.time()
+    reports = ThreadPoolExecutor(len(SASS_SOURCES))   # its threads end with the reports
+    for source in SASS_SOURCES:
+        SASS_PENDING[source] = reports.submit(ptxas_report, source)
+    reports.shutdown(wait=False)
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(_build.build, SOURCES))
-    log(f"[phase 1] built {', '.join(SOURCES)} in {time.time() - t0:.2f} s")
+    log(f"[phase 1] built {', '.join(SOURCES)} in {time.time() - t0:.2f} s (the ptxas "
+        f"reports of {len(SASS_SOURCES)} sources compiling beside them)")
 
 
 ATTN_CASES = [  # (label, B, N, C, heads, exact, q multiplier)
@@ -771,8 +815,8 @@ def phase4(gen: torch.Generator) -> None:
 def phase5() -> "tuple[dict, float, torch.Tensor]":
     """The main path: txt2img SD2 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
     with the defaults (both sampling savings on), then the savings on and
-    off in one call (SAVINGS, timed in the order off, on, on, off, dedup,
-    hoist). Returns the launch counts, the seconds of the first timed run
+    off in one call (SAVINGS, timed in the order off, on, dedup, hoist;
+    scripts/savings_ab.py times them in turns). Returns the launch counts, the seconds of the first timed run
     with the defaults and its images (on the host)."""
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
@@ -803,7 +847,7 @@ def phase5() -> "tuple[dict, float, torch.Tensor]":
     assert img1.float().std().item() > 1.0, "degenerate image"
     seconds: dict = {name: [] for name in SAVINGS}
     images: dict = {}
-    for name in ("off", "on", "on", "off", "dedup", "hoist"):
+    for name in ("off", "on", "dedup", "hoist"):
         with savings(name):
             img, sec = run()
         seconds[name].append(sec)
@@ -819,7 +863,7 @@ def phase5() -> "tuple[dict, float, torch.Tensor]":
     assert torch.equal(images["dedup"], images["on"]), "the K/V hoist moved bytes under dedup"
     on, off = images["on"].float(), images["off"].float()
     img_l2 = ((on - off).norm() / off.norm()).item()
-    log("[phase 5] sampling savings, s_per_batch in the order off, on, on, off, dedup, hoist "
+    log("[phase 5] sampling savings, s_per_batch in the order off, on, dedup, hoist "
         "(scripts/savings_ab.py times them in more turns): " + " ".join(
             f"{name}={','.join(f'{x:.3f}' for x in secs)}" for name, secs in seconds.items())
         + f"; images on vs off: rel_l2={img_l2:.3e} max_abs={(on - off).abs().max():.0f} "
@@ -1535,9 +1579,7 @@ def phase17(gen: torch.Generator, table: dict) -> None:
     log(f"[phase 17] channel_sums vjp (3, 32, 32, 640) rel_err_vs_autograd_plain={err:.3e}")
     assert err <= REL_TOL, err
     # ptxas and the SASS: a reduction (no tensor-core lines), no spills
-    report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
-                                      "ptxas_report.py"), "gn_stats"])
-    SASS_REPORTS["gn_stats"] = report
+    report = sass_report("gn_stats")
     rows = [ln for ln in report.splitlines() if "channel_sums_kernel" in ln and "SASS lines" in ln]
     for ln in report.splitlines():
         log(f"[phase 17] {ln}")
@@ -2465,6 +2507,9 @@ def serve_args(argv: list):
     return serve.build_argparser().parse_args(argv)
 
 
+SATURATION_BATCHES = 2     # phase 25's back-to-back batches through the engine
+
+
 def phase25(phase5_s: float) -> dict:
     """SD2 serving at the main path's config (512^2, DDIM-50, CFG 9.0, batch
     8, bf16, raw-exp, seeded random weights) built by cli/serve's
@@ -2514,9 +2559,9 @@ def phase25(phase5_s: float) -> dict:
         png_ms = host_ms(lambda: encode_png(co))
 
         # one batch at a time with the sampling savings off and on (SAVINGS),
-        # in the order off, on, on, off, before the profiler runs
+        # in the order off, on, before the profiler runs
         walls: dict = {"off": [], "on": []}
-        for name in ("off", "on", "on", "off"):
+        for name in ("off", "on"):
             with savings(name):
                 t0 = time.time()
                 with ThreadPoolExecutor(SERVE_BATCH) as pool:
@@ -2525,7 +2570,7 @@ def phase25(phase5_s: float) -> dict:
                 walls[name].append(time.time() - t0)
 
         # saturation: 3 full batches back to back, straight into the engine
-        n = 3 * SERVE_BATCH
+        n = SATURATION_BATCHES * SERVE_BATCH
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
@@ -2545,11 +2590,12 @@ def phase25(phase5_s: float) -> dict:
         f"p50_latency_s={statistics.median(latencies):.3f} max_latency_s={latencies[-1]:.3f} "
         f"solo_s={solo[2]:.3f} png_encode_ms={png_ms:.2f} synchronising calls in "
         f"dispatch: {len(syncs)}")
-    log(f"[phase 25] saturation: {n} requests, 3 batches in {wall:.3f} s: "
-        f"s_per_batch={wall / 3:.3f} (phase 5: {phase5_s:.3f}) img_per_s={n / wall:.4f} "
+    log(f"[phase 25] saturation: {n} requests, {SATURATION_BATCHES} batches in {wall:.3f} s: "
+        f"s_per_batch={wall / SATURATION_BATCHES:.3f} (phase 5: {phase5_s:.3f}) "
+        f"img_per_s={n / wall:.4f} "
         f"device_idle_share={idle:.4f} gaps_after_each_batch_ms="
         + ",".join(f"{g:.3f}" for g in gaps)
-        + "; one batch at a time with the savings off, on, on, off: s_per_batch "
+        + "; one batch at a time with the savings off, on: s_per_batch "
         + ", ".join(f"{name}={','.join(f'{x:.3f}' for x in secs)}"
                     for name, secs in walls.items()))
     del engine, adapter
@@ -2854,9 +2900,7 @@ def hold_wgmma_sass(source: str, kernels, phase: str, spills=()) -> None:
     wgmma (HGMMA) and no mma.sync (HMMA), and none of `spills` (kernel
     names; True: all of `kernels`) spills. Keeps the report in
     SASS_REPORTS."""
-    report = run([sys.executable, str(Path(__file__).resolve().parent / "scripts" /
-                                      "ptxas_report.py"), source])
-    SASS_REPORTS[source] = report
+    report = sass_report(source)
     for line in report.splitlines():
         log(f"[{phase}] {line}")
     for kname in kernels:
@@ -3200,6 +3244,261 @@ def phase30(tmp: str) -> None:
     del models, back
     torch.cuda.empty_cache()
 
+GRID_BATCH = 4          # phase 31's global batch: 2 rows a rank
+GRID_MODES = {"dp2": (2, 1), "fsdp2": (1, 2)}
+# The bound on the UNet update's relative L2 of a grid step against the
+# one-process step: AdamW's first update (warmup 0) is about lr * sign(g)
+# per element, so an element whose gradient lies within the rounding
+# noise of two bf16 runs that sum in another order (K1 / K2 tiles over 2
+# rows against 4, the mean over the ranks) may flip its sign and move by 2
+# lr; a fraction f of such elements gives a relative L2 of about 2 sqrt(f).
+# 0.2 allows f = 1%. A step that dropped the all-reduce (each rank on its
+# own 2 rows) or lost the gradient would flip far more.
+GRID_UPDATE_TOL = 0.2
+
+
+def grid_rank(rank: int, store: str, tmp: str) -> None:
+    """One of phase 31's two ranks on the card: a gloo group (over CUDA
+    tensors), then grid_work; its result pickled to tmp/rank<r>.pt."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                                world_size=2)
+        result = ("ok", grid_work(rank, tmp))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        result = ("error", traceback.format_exc())
+    with open(os.path.join(tmp, f"rank{rank}.pt"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def grid_work(rank: int, tmp: str) -> dict:
+    """Phase 31 (a) on one rank: rank 0 takes the one-process step on the
+    global batch of GRID_BATCH with fixed draws, then both ranks take the
+    same step at dp 2 and at fsdp 2 on their rows, a rank's first step
+    after one warm loss and gradient. Each mode: the step's metrics, its all-zero UNet
+    gradients (counted where the optimizer takes them), the launches,
+    s/step and peak memory of the step, and on rank 0 the UNet update's
+    relative L2 against the one-process one (both held on the host)."""
+    import torch.distributed as dist
+
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
+    from minddiffusion_tpu_torch.parallel.collectives import is_dtensor, whole
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+    from minddiffusion_tpu_torch.train import trainer
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    batch = {"image": torch.rand(GRID_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3, generator=g,
+                                 device="cuda") * 2 - 1,
+             "tokens": torch.randint(0, 49408, (GRID_BATCH, 77), generator=g, device="cuda")}
+    draws = {"t": torch.randint(0, 1000, (GRID_BATCH,), generator=g, device="cuda"),
+             "noise": torch.randn(GRID_BATCH, 64, 64, 4, generator=g, device="cuda"),
+             "enc_noise": torch.randn(GRID_BATCH, 64, 64, 4, generator=g, device="cuda")}
+    config = trainer.TrainConfig(warmup_steps=0)
+    ref_update: dict = {}
+
+    def run(mesh, warm: bool) -> dict:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        models = SDModels.create(family="sd2", dtype=torch.bfloat16,
+                                 param_dtype=torch.float32, attn_impl=None, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(11))
+        init = {n: p.detach().cpu() for n, p in models.unet.named_parameters()} \
+            if rank == 0 else {}
+        state = trainer.create_train_state(models, config, mesh=mesh)
+        rows = batch if mesh is None else shard_batch(batch, mesh)
+        if warm:    # the step's loss and gradient once without the update, so
+            # the timed step of a rank's first mode pays no first-call costs
+            trainer.make_loss_and_grads(config)(state, rows, None, draws)
+        zero = []
+        opt_step = state.optimizer.step
+
+        def counting_step(grads, finite=None):  # the step's own UNet gradients
+            nonzero = torch.stack([(g.to_local() if is_dtensor(g) else g).count_nonzero()
+                                   for g in grads.values()]).float()
+            if is_dtensor(next(iter(grads.values()))):
+                dist.all_reduce(nonzero)         # each rank holds a shard of each
+            zero.append(int((nonzero == 0).sum().item()))
+            return opt_step(grads, finite)
+
+        state.optimizer.step = counting_step
+        step = trainer.make_train_step(config)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        metrics = step(state, rows, 0, draws)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        del state.optimizer.step        # the wrapper's cycle would keep the state alive
+        out = dict(metrics={k: v.item() for k, v in metrics.items()}, zero=zero[0],
+                   n_unet=len(state.optimizer.trainable), counts=counts, s_step=dt,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        num = den = 0.0
+        with torch.no_grad():
+            for n, p in models.unet.state_dict().items():   # every rank: a gather under fsdp
+                p = whole(p)
+                if rank or n not in init:
+                    continue
+                update = p.float() - init[n].cuda()
+                if mesh is None:
+                    ref_update[n] = update.cpu()
+                else:
+                    ref = ref_update[n].cuda()
+                    num += (update - ref).pow(2).sum().item()
+                    den += ref.pow(2).sum().item()
+        if mesh is not None and rank == 0:
+            out["update_rel_l2"] = (num / den) ** 0.5
+        del models, state, step, metrics, init
+        torch.cuda.empty_cache()
+        return out
+
+    result = {}
+    if rank == 0:
+        result["ref"] = run(None, warm=True)
+    dist.barrier()
+    for i, (name, (dp, fsdp)) in enumerate(GRID_MODES.items()):
+        result[name] = run(make_mesh(MeshConfig(dp, fsdp), "cuda"), warm=i == 0)
+        dist.barrier()
+    return result
+
+
+def bpe_merges(path: str) -> None:
+    """A stand-in CLIP merges file (the CLIP vocab is not in the
+    repository): the header line and a few merges, enough for the BPE
+    tokenizer to build its vocab."""
+    import gzip
+
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: stand-in\n" + "\n".join(
+            ["t h", "th e</w>", "c a", "ca t</w>", "a n", "an d</w>"]) + "\n")
+
+
+def phase31(tmp: str) -> dict:
+    """SD2 finetune 512^2 at full width on the process grid, on the one card.
+    (a) Two ranks on the card, each a gloo group over CUDA tensors (NCCL
+    refuses two ranks on one GPU): one step at dp 2 and one at fsdp 2 on
+    a global batch of GRID_BATCH (2 rows a rank), warmup 0, fixed draws,
+    each against the one-process step on the same batch and draws. (b)
+    `python -m torch.distributed.run --nproc_per_node 1 -m
+    minddiffusion_tpu_torch.cli.train` at full width (NCCL, world 1),
+    --dp -1 --fsdp 1, 2 steps: its backend, its loss, one checkpoint from
+    rank 0 that `build_sd` reads back."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from minddiffusion_tpu_torch.cli import common
+    from minddiffusion_tpu_torch.io.checkpoints import load_checkpoint
+
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "store")
+    t0 = time.time()
+    procs = [ctx.Process(target=grid_rank, args=(r, store, tmp)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(600 - (time.time() - t0), 1))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    assert not alive, "phase 31: a rank did not finish in 600 s"
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pt"), "rb") as f:
+            status, value = pickle.load(f)
+        assert status == "ok", f"rank {r}:\n{value}"
+        ranks.append(value)
+    grid_s = time.time() - t0
+    ref = ranks[0]["ref"]
+    expected = {k: v for k, v in expected_counts("sd2_finetune_512_b3").items() if v}
+    by_path = {}
+    for name in GRID_MODES:
+        for r, res in enumerate(ranks):
+            m = res[name]
+            for k in ("loss", "grad_norm"):
+                assert abs(m["metrics"][k] - ref["metrics"][k]) <= 1e-2 * abs(ref["metrics"][k]), \
+                    (name, r, k, m["metrics"][k], ref["metrics"][k])
+            assert m["metrics"]["grads_finite"] == 1.0, (name, r)
+            assert m["zero"] == ref["zero"], (name, r, m["zero"], ref["zero"])
+            assert m["counts"] == expected, (name, r, m["counts"], expected)
+        rel = ranks[0][name]["update_rel_l2"]
+        log(f"[phase 31] sd2 finetune 512x512 {name} on 2 ranks of one card (gloo over CUDA "
+            f"tensors), global batch {GRID_BATCH}: loss "
+            f"{[res[name]['metrics']['loss'] for res in ranks]} vs one process "
+            f"{ref['metrics']['loss']:.6f}, grad_norm "
+            f"{[res[name]['metrics']['grad_norm'] for res in ranks]} vs "
+            f"{ref['metrics']['grad_norm']:.6f}; UNet update rel_l2 vs one process {rel:.4e} "
+            f"(bound {GRID_UPDATE_TOL}); all-zero UNet grads "
+            f"{[res[name]['zero'] for res in ranks]} of {ref['n_unet']} (one process "
+            f"{ref['zero']}); launches a rank a step {[res[name]['counts'] for res in ranks]}; "
+            f"s_per_step {[round(res[name]['s_step'], 4) for res in ranks]} (one process "
+            f"{ref['s_step']:.4f}); peak_mem_gb a rank "
+            f"{[round(res[name]['peak_gb'], 2) for res in ranks]} (one process "
+            f"{ref['peak_gb']:.2f})")
+        assert rel <= GRID_UPDATE_TOL, (name, rel)
+        by_path[f"sd2_finetune_512_b{GRID_BATCH}_{name}_rank0"] = {
+            k: ranks[0][name]["counts"].get(k, 0) for k in KERNELS}
+
+    # (b) the train CLI under torchrun: NCCL, world 1
+    data, assets, out = (os.path.join(tmp, d) for d in ("cli_data", "cli_assets", "cli_out"))
+    os.makedirs(data)
+    os.makedirs(assets)
+    rng = np.random.default_rng(31)
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)).save(
+            os.path.join(data, f"im_{i}.png"))
+    with open(os.path.join(data, "train.csv"), "w") as f:
+        f.write("dir,text\n" + "".join(f"im_{i}.png,the cat\n" for i in range(4)))
+    bpe_merges(os.path.join(assets, "bpe_simple_vocab_16e6.txt.gz"))
+    env = dict(os.environ, MINDDIFFUSION_TPU_ASSETS=assets)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "minddiffusion_tpu_torch.cli.train", "--family", "sd2", "--data_path",
+           data, "--output_path", out, "--train_batch_size", "2", "--max_steps", "2",
+           "--warmup_steps", "0", "--dp", "-1", "--fsdp", "1"]
+    t1 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=400,
+                          cwd=str(Path(__file__).resolve().parent))
+    cli_s = time.time() - t1
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    backend = re.search(r"process group: (\w+) backend, (\d+) rank", proc.stdout)
+    assert backend and backend.groups() == ("nccl", "1"), proc.stdout[-2000:]
+    logs = [json.loads(line) for line in open(os.path.join(out, "log.jsonl"))]
+    loss = logs[-1]["loss"]
+    assert logs[-1]["final_step"] == 2 and math.isfinite(loss), logs
+    files = sorted(os.listdir(os.path.join(out, "ckpt")))
+    assert files == ["ckpt_00000001.pt"], files
+    path = os.path.join(out, "ckpt", files[0])
+    t2 = time.time()
+    back = common.build_sd("sd2", "bf16", torch.device("cuda"), ckpt_path=path,
+                           param_dtype=torch.float32)
+    saved = load_checkpoint(path)
+    name = "model.diffusion_model.out.2.weight"
+    assert torch.equal(back.unet.state_dict()["out.2.weight"].cpu(), saved[name])
+    read_s = time.time() - t2
+    log(f"[phase 31] torchrun --nproc_per_node 1 -m minddiffusion_tpu_torch.cli.train "
+        f"--family sd2 --dp -1 --fsdp 1, 512x512, batch 2, 2 steps: process group backend "
+        f"{backend.group(1)}, world {backend.group(2)}, loss {loss:.6f}, rank 0 wrote "
+        f"{files} ({os.path.getsize(path) / 1e9:.3f} GB), build_sd read it back "
+        f"(strict) in {read_s:.1f} s; the CLI took {cli_s:.1f} s, the two ranks of (a) "
+        f"{grid_s:.1f} s")
+    del back, saved
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3326,6 +3625,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase30(tmp)
     lap("30")
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase31(tmp))
+    lap("31")
     kernels = []
     for kname, rec in table.items():
         main_case = next(c for c in rec["cases"] if c["case"] == MAIN_CASE[kname])

@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: model building, weight loading, tokenizers, image saving."""
+"""Shared CLI plumbing: the process grid, model building, weight loading,
+tokenizers, image saving."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +25,62 @@ def resolve_device(name: str) -> torch.device:
     if name.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     return torch.device(name)
+
+
+@dataclasses.dataclass
+class Grid:
+    """This process's device and its place on the (dp, fsdp, tp) grid:
+    `mesh` is None for one process; `owned`: this CLI opened the process
+    group and closes it."""
+
+    device: torch.device
+    mesh: object = None
+    owned: bool = False
+
+    def close(self) -> None:
+        if self.owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def init_grid(device_name: str, dp: int, fsdp: int) -> Grid:
+    """The train CLIs' --dp / --fsdp. Under `torchrun` (RANK and WORLD_SIZE
+    in the environment) it opens the process group, NCCL for a CUDA device
+    and gloo for `--device cpu` (a failure raises), on cuda:LOCAL_RANK, and
+    builds the grid MeshConfig(dp, fsdp).resolve(world) over it; a group
+    the caller opened is used as it is. Without either, one process on
+    `device_name`, as before the grid existed. A grid that does not
+    multiply out to the world size is refused."""
+    import torch.distributed as dist
+
+    from minddiffusion_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    owned = not dist.is_initialized() and "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    grid = owned or dist.is_initialized()
+    if not grid:
+        device = resolve_device(device_name)
+    elif device_name == "cpu":
+        device = torch.device("cpu")
+    else:
+        rank = dist.get_rank() if dist.is_initialized() else int(os.environ["RANK"])
+        local = int(os.environ.get("LOCAL_RANK", rank % max(torch.cuda.device_count(), 1)))
+        device = resolve_device(f"cuda:{local}")
+        torch.cuda.set_device(device)
+    if owned:
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl",
+                                device_id=None if device.type == "cpu" else device)
+    try:
+        config = MeshConfig(dp=dp, fsdp=fsdp).resolve()
+    except AssertionError as e:
+        raise SystemExit(f"--dp {dp} --fsdp {fsdp}: {e} (the world size of the process "
+                         "group; launch N ranks with torchrun --nproc_per_node N)")
+    if not grid:
+        return Grid(device)
+    if dist.get_rank() == 0:
+        print(f"process group: {dist.get_backend()} backend, {dist.get_world_size()} ranks; "
+              f"grid dp {config.dp} x fsdp {config.fsdp} x tp {config.tp}", flush=True)
+    return Grid(device, make_mesh(config, device.type), owned)
 
 
 def tiny_configs(family: str) -> dict:

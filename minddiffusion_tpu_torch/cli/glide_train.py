@@ -16,14 +16,21 @@ warmup, decay), read at the update count from 0) -> EMA. Checkpoints are
 <output_path>/ckpt (io/glide_weights.stage_state_dict loads either into the
 cascade).
 
+Under `torchrun --nproc_per_node N` the step runs on the (--dp, --fsdp)
+grid as cli/train.py's does (parallel/mesh.py): each rank's rows of the
+node's batch (its t and weights with them), the noise drawn for the global
+batch and cut to the rank's rows, the gradient averaged over the data
+ranks or sharded by FSDP2, the EMA kept on what each rank holds (the whole
+params under dp, its shards under fsdp), checkpoints gathered whole and
+written by rank 0.
+
 Differences from the JAX CLI: the step is eager PyTorch (the JAX CLI jits it
 with utils/xla_opts); --pretrained_ckpt is a torch state dict in the port's
 names (or a glide_train checkpoint, whose "params" it takes; a JAX tree
 comes across through io/glide_weights.train_checkpoint_from_jax), not an
-orbax dir; --dp takes -1 or 1 and --fsdp 1, as in cli/train.py. Without
---tokenizer_model the caption's words are hashed to ids with CRC-32, the
-same ids in every process (the JAX CLI's fallback uses Python's salted
-`hash`).
+orbax dir. Without --tokenizer_model the caption's words are hashed to ids
+with CRC-32, the same ids in every process (the JAX CLI's fallback uses
+Python's salted `hash`).
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ from minddiffusion_tpu_torch.data.glide_dataset import GlideTextImageDataset, re
 from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
 from minddiffusion_tpu_torch.models.glide import (
     GlideUNetConfig, SuperResText2ImUNet, Text2ImUNet, XfConfig)
+from minddiffusion_tpu_torch.parallel.collectives import global_rows, gradients, mean_over_ranks
+from minddiffusion_tpu_torch.parallel.mesh import batch_sharding, shard_params
 from minddiffusion_tpu_torch.pipelines.glide_cascade import init_random_glide_
 from minddiffusion_tpu_torch.train.ema import init_ema, update_ema
 from minddiffusion_tpu_torch.train.glide_loss import glide_diffusion_loss
@@ -129,12 +138,14 @@ def glide_schedule(super_res: bool, diffusion_steps: int = 1000):
 @dataclasses.dataclass
 class GlideTrainState:
     """The model (its params are the train params), the optimizer, the EMA
-    (name -> tensor) and `step`, the steps taken."""
+    (name -> tensor), `step`, the steps taken, and the process grid (None:
+    one process)."""
 
     models: Text2ImUNet
     optimizer: AdamW
     ema: Dict[str, torch.Tensor]
     step: int = 0
+    mesh: object = None
 
     @property
     def params(self) -> Dict[str, torch.nn.Parameter]:
@@ -142,20 +153,24 @@ class GlideTrainState:
 
 
 def create_train_state(model: Text2ImUNet, lr: float, warmup_steps: int,
-                       decay_steps: int) -> GlideTrainState:
+                       decay_steps: int, mesh=None) -> GlideTrainState:
     """optax.chain(clip_by_global_norm(1.0), adamw(warmup_then_decay(lr,
     lr * 0.01, warmup, decay))) over every param, and the EMA at the
-    params."""
+    params, after the model is placed on `mesh` (FSDP2 under fsdp > 1)."""
+    if mesh is not None:
+        shard_params({"glide": model}, mesh)
     params = dict(model.named_parameters())
     schedule = warmup_then_decay(lr, lr * 0.01, warmup_steps, decay_steps)
     return GlideTrainState(models=model, optimizer=AdamW(params, schedule, **GLIDE_ADAMW),
-                           ema=init_ema(params))
+                           ema=init_ema(params), mesh=mesh)
 
 
 def loss_and_grads(state: GlideTrainState, schedule, super_res: bool,
                    batch: Dict[str, torch.Tensor], noise: torch.Tensor):
     """(metrics, grads): glide_diffusion_loss of one batch on the device and
-    the gradient of every param (zeros where the loss does not reach one)."""
+    the gradient of every param (parallel/collectives.gradients: zeros
+    where the loss does not reach one; on a grid averaged over the data
+    ranks, and the metrics their means over the ranks)."""
     model = state.models
     low = (batch["low_res"],) if super_res else ()
 
@@ -165,10 +180,8 @@ def loss_and_grads(state: GlideTrainState, schedule, super_res: bool,
     loss, metrics = glide_diffusion_loss(
         model_fn, schedule, batch["image"], batch["tokens"], batch["mask"], batch["t"],
         batch["weights"], noise)
-    params = state.params
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return metrics, {n: torch.zeros_like(p) if g is None else g
-                     for (n, p), g in zip(params.items(), grads)}
+    grads = gradients(loss, lambda: state.params, set(state.optimizer.trainable), state.mesh)
+    return (metrics if state.mesh is None else mean_over_ranks(metrics)), grads
 
 
 def build_step(schedule, super_res: bool, ema_decay: float) -> Callable:
@@ -178,15 +191,17 @@ def build_step(schedule, super_res: bool, ema_decay: float) -> Callable:
     CLI's step_fn). batch: "image" (B, H, W, 3) in [-1, 1], "tokens",
     "mask" (B, ctx), "t" (B,), "weights" (B,) and, with `super_res`,
     "low_res". `noise` (like the image) replaces the draw from the step's
-    generator (seed, step)."""
+    generator (seed, step). On a grid the batch is this rank's rows, and
+    `noise` and the draw are the global batch's, cut to them."""
 
     def step(state: GlideTrainState, batch: Dict[str, torch.Tensor], seed: int,
              noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         dev = state.models.device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        if noise is None:
-            noise = torch.randn(batch["image"].shape, device=dev,
-                                generator=step_generator(seed, state.step, dev))
+        rows = batch_sharding(state.mesh)
+        noise = (rows.take(noise, "noise") if noise is not None else
+                 global_rows(torch.randn, rows, batch["image"].shape, device=dev,
+                             generator=step_generator(seed, state.step, dev)))
         metrics, grads = loss_and_grads(state, schedule, super_res, batch, noise.to(dev))
         metrics["grad_norm"] = state.optimizer.step(grads)
         update_ema(state.ema, state.params, ema_decay)
@@ -199,11 +214,8 @@ def build_step(schedule, super_res: bool, ema_decay: float) -> Callable:
 def main(argv=None) -> GlideTrainState:
     parser = build_parser()
     args = parse_with_config(parser, argv)
-    if args.dp not in (-1, 1) or args.fsdp != 1:
-        raise SystemExit(f"--dp {args.dp} --fsdp {args.fsdp}: the port trains on one "
-                         "device (--dp -1 or 1, --fsdp 1); data and model parallelism "
-                         "are the parallel item of ROADMAP.md Queue 1")
-    device = common.resolve_device(args.device)
+    grid = common.init_grid(args.device, args.dp, args.fsdp)
+    device = grid.device
     if device.type == "cuda" and args.dtype != "bf16":
         parser.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
     set_random_seed(args.seed)
@@ -216,7 +228,8 @@ def main(argv=None) -> GlideTrainState:
         sd = torch.load(args.pretrained_ckpt, map_location="cpu", weights_only=True)
         model.load_state_dict(sd.get("params", sd), strict=True)
     img_size = args.super_res_image_size if args.super_res else args.image_size
-    state = create_train_state(model, args.lr, args.warmup_steps, args.decay_steps)
+    state = create_train_state(model, args.lr, args.warmup_steps, args.decay_steps,
+                               mesh=grid.mesh)
 
     ctx = xcfg.text_ctx
     if args.tokenizer_model:
@@ -252,6 +265,7 @@ def main(argv=None) -> GlideTrainState:
     state = trainer.fit(state, epochs=args.epochs)
     logger.logkv("final_step", state.step)
     logger.dumpkvs()
+    grid.close()
     return state
 
 

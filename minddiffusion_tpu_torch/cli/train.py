@@ -10,10 +10,19 @@ with `--device cpu`.
     python -m minddiffusion_tpu_torch.cli.train --train_mode dreambooth \\
         --instance_data_dir inst/ --class_data_dir cls/
 
-One process on one device: `--dp` takes -1 or 1 and `--fsdp` 1; data and
-model parallelism wait for ROADMAP.md Queue 1 item 15. Checkpoints hold the
-params (LoRA: the adapters only) as LDM-named torch state dicts under
-`<output_path>/ckpt`.
+Without a launcher: one process on one device (`--dp` -1 or 1, `--fsdp`
+1). Under `torchrun --nproc_per_node N` the step runs on the grid
+MeshConfig(dp=--dp, fsdp=--fsdp).resolve(N) (parallel/mesh.py), one rank a
+GPU (cuda:LOCAL_RANK, NCCL; gloo with --device cpu): `--train_batch_size`
+is one node's batch, split over its ranks; the gradient is averaged over
+the data ranks, and under --fsdp > 1 the UNet and the text encoder are
+sharded by FSDP2:
+
+    torchrun --nproc_per_node 2 -m minddiffusion_tpu_torch.cli.train --dp 2 ...
+    torchrun --nproc_per_node 2 -m minddiffusion_tpu_torch.cli.train --fsdp 2 ...
+
+Checkpoints hold the params (LoRA: the adapters only) as LDM-named torch
+state dicts under `<output_path>/ckpt`, gathered whole and written by rank 0.
 """
 from __future__ import annotations
 
@@ -82,17 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parse_with_config(parser, argv)
-    if args.dp not in (-1, 1) or args.fsdp != 1:
-        raise SystemExit(f"--dp {args.dp} --fsdp {args.fsdp}: the port trains on one "
-                         "device (--dp -1 or 1, --fsdp 1); data and model parallelism "
-                         "are ROADMAP.md Queue 1 item 15")
     dreambooth = args.train_mode == "dreambooth"
     if dreambooth and not (args.instance_data_dir and args.class_data_dir):
         raise SystemExit("--train_mode dreambooth needs --instance_data_dir and "
                          "--class_data_dir")
     if not dreambooth and not args.data_path:
         raise SystemExit("--data_path is required unless --train_mode dreambooth")
-    device = common.resolve_device(args.device)
+    grid = common.init_grid(args.device, args.dp, args.fsdp)
+    device = grid.device
     if device.type == "cuda" and args.dtype != "bf16":
         parser.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
     set_random_seed(args.seed)
@@ -120,7 +126,7 @@ def main(argv=None):
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
         weight_decay=args.weight_decay, beta1=args.betas[0], beta2=args.betas[1],
         trainable="lora" if lora else "unet", prior_loss_weight=args.prior_loss_weight)
-    state = create_train_state(models, config)
+    state = create_train_state(models, config, mesh=grid.mesh)
 
     callbacks = [LossMonitor(logger)]
     if args.enable_profiling:
@@ -137,6 +143,7 @@ def main(argv=None):
     state = trainer.fit(state, epochs=args.epochs)
     logger.logkv("final_step", state.step)
     logger.dumpkvs()
+    grid.close()
     return state
 
 

@@ -9,8 +9,15 @@ this port reads them with the csv module and reproduces pandas' result for
 the captions it reads as missing: an empty field (or another of pandas'
 default NA strings) becomes the caption "nan", as `str(NaN)` does there.
 
-One process reads the whole list (the JAX package's shard 0 of 1). A
-background thread prefetches PREFETCH batches ahead of the training step.
+The list is sharded by node as the JAX package shards it by host: node
+`shard_index` of `shard_count` reads images[shard_index::shard_count]. Each
+of a node's ranks walks the node's epoch order and keeps its rows (block
+`row_index` of `row_count`) of every batch of `batch_size`, so
+`batch_size` is the batch of one node, as it is the batch of one host in
+JAX, and a node's ranks together train on the batches the JAX loader gives
+its host. All four default to this process's place on the process group
+(parallel/mesh.data_layout: node 0 of 1 and the whole batch without one).
+A background thread prefetches PREFETCH batches ahead of the training step.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from minddiffusion_tpu_torch.data import transforms
+from minddiffusion_tpu_torch.parallel.mesh import Rows, data_layout
 
 # pandas.read_csv's default NA strings (pandas/_libs/parsers.pyx STR_NA_VALUES)
 PANDAS_NA = frozenset({
@@ -87,14 +95,19 @@ def filter_small_images(images: List[str], captions: List[str], min_size: int,
 
 
 class TextImageDataset:
-    """Iterable over epochs of {image, tokens} batches."""
+    """Iterable over epochs of {image, tokens} batches: this rank's rows of
+    its node's batches."""
 
     def __init__(self, images: List[str], captions: List[str],
                  tokenize: Callable[[List[str]], np.ndarray], batch_size: int,
                  image_size: int = 512, random_crop: bool = False, flip_p: float = 0.5,
-                 seed: int = 0):
-        self.images = images
-        self.captions = captions
+                 seed: int = 0, shard_index: Optional[int] = None,
+                 shard_count: Optional[int] = None, row_index: Optional[int] = None,
+                 row_count: Optional[int] = None):
+        shard, self.rows = placement(batch_size, shard_index, shard_count, row_index,
+                                     row_count)
+        self.images = images[shard]
+        self.captions = captions[shard]
         self.tokenize = tokenize
         self.batch_size = batch_size
         self.image_size = image_size
@@ -126,8 +139,9 @@ class TextImageDataset:
                 batch_imgs.append(img)
                 batch_caps.append(self.captions[idx])
                 if len(batch_imgs) == self.batch_size:
-                    out_q.put({"image": np.stack(batch_imgs),
-                               "tokens": np.asarray(self.tokenize(batch_caps), np.int32)})
+                    out_q.put({"image": self.rows.take(np.stack(batch_imgs)),
+                               "tokens": self.rows.take(
+                                   np.asarray(self.tokenize(batch_caps), np.int32))})
                     batch_imgs, batch_caps = [], []
             out_q.put(None)
 
@@ -140,10 +154,27 @@ class TextImageDataset:
             yield item
 
 
+def placement(batch_size: int, shard_index: Optional[int] = None,
+              shard_count: Optional[int] = None, row_index: Optional[int] = None,
+              row_count: Optional[int] = None) -> Tuple[slice, Rows]:
+    """(this node's slice of the list, this rank's rows of a node batch),
+    each part not given taken from the process group (`data_layout`).
+    Refuses a batch that does not divide over the node's ranks, as JAX's
+    device_put refuses one that does not divide over the devices."""
+    node, nodes, row, rows = data_layout()
+    pick = (lambda value, default: default if value is None else value)
+    rows = Rows(pick(row_index, row), pick(row_count, rows))
+    if batch_size % rows.count:
+        raise ValueError(f"batch size {batch_size} does not divide over the node's "
+                         f"{rows.count} ranks")
+    return slice(pick(shard_index, node), None, pick(shard_count, nodes)), rows
+
+
 def load_data(data_path: str, batch_size: int, tokenize: Callable, image_size: int = 512,
               image_filter_size: int = 256, random_crop: bool = False,
-              filter_small_size: bool = True, seed: int = 0) -> TextImageDataset:
-    """The reference's load_data surface (dataset.py:31-74)."""
+              filter_small_size: bool = True, seed: int = 0, **shards) -> TextImageDataset:
+    """The reference's load_data surface (dataset.py:31-74); `shards`:
+    TextImageDataset's shard_index, shard_count, row_index, row_count."""
     images, captions = list_image_files_captions(data_path)
     if filter_small_size:
         images, captions = filter_small_images(images, captions, image_filter_size,
@@ -151,4 +182,4 @@ def load_data(data_path: str, batch_size: int, tokenize: Callable, image_size: i
     if not images:
         raise ValueError("no usable images after filtering")
     return TextImageDataset(images, captions, tokenize, batch_size, image_size=image_size,
-                            random_crop=random_crop, seed=seed)
+                            random_crop=random_crop, seed=seed, **shards)

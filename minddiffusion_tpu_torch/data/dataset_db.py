@@ -6,16 +6,22 @@ t2i_collate.py:32-46): train images repeated `train_data_repeats` times so
 both streams have comparable length; captions synthesized as
 "<token> <class_word>" for instance images and "<class_word>" for
 regularization images; each batch carries all four fields.
+
+The JAX package does not shard this stream by host, and neither does the
+port: every node reads all of it, and each of a node's ranks keeps its rows
+of every batch (`row_index` of `row_count`, by default its place on the
+process group; data/dataset.py).
 """
 from __future__ import annotations
 
 import os
 import random
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
 from minddiffusion_tpu_torch.data import transforms
+from minddiffusion_tpu_torch.data.dataset import placement
 
 
 def _list_images(path: str) -> List[str]:
@@ -39,7 +45,10 @@ class DreamBoothDataset:
         train_data_repeats: int = 100,
         seed: int = 0,
         flip_p: float = 0.5,
+        row_index: Optional[int] = None,
+        row_count: Optional[int] = None,
     ):
+        _, self.rows = placement(batch_size, row_index=row_index, row_count=row_count)
         self.instance_images = _list_images(instance_data_dir) * train_data_repeats
         self.class_images = _list_images(class_data_dir)
         if not self.instance_images or not self.class_images:
@@ -71,10 +80,11 @@ class DreamBoothDataset:
             batch_imgs.append(img)
             batch_regs.append(reg)
             if len(batch_imgs) == self.batch_size:
-                yield {
+                batch = {
                     "image": np.stack(batch_imgs),
                     "tokens": np.asarray(inst_toks, np.int32),
                     "reg_image": np.stack(batch_regs),
                     "reg_tokens": np.asarray(reg_toks, np.int32),
                 }
+                yield {k: self.rows.take(v, k) for k, v in batch.items()}
                 batch_imgs, batch_regs = [], []

@@ -12,7 +12,10 @@ train/image_datasets.py).
     its order, so the batches are equal bit for bit;
   * the super-res variant adds `low_res`, the crop box-averaged down to
     `super_res_size`;
-  * an unreadable image (OSError) is skipped.
+  * an unreadable image (OSError) is skipped;
+  * the pairs are sharded by node, pairs[shard_index::shard_count], as the
+    JAX package shards them by host, and each of a node's ranks keeps its
+    rows (t and weights with them) of every node batch (data/dataset.py).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from minddiffusion_tpu_torch.data import transforms
+from minddiffusion_tpu_torch.data.dataset import placement
 from minddiffusion_tpu_torch.train.resample import UniformSampler
 
 
@@ -48,8 +52,12 @@ class GlideTextImageDataset:
                  encode_and_pad: Callable[[str], Tuple[np.ndarray, np.ndarray]],
                  batch_size: int, image_size: int = 64, num_timesteps: int = 1000,
                  text_drop_p: float = 0.2, seed: int = 0,
-                 super_res_size: Optional[int] = None):
-        self.pairs = pairs
+                 super_res_size: Optional[int] = None, shard_index: Optional[int] = None,
+                 shard_count: Optional[int] = None, row_index: Optional[int] = None,
+                 row_count: Optional[int] = None):
+        shard, self.rows = placement(batch_size, shard_index, shard_count, row_index,
+                                     row_count)
+        self.pairs = pairs[shard]
         self.encode_and_pad = encode_and_pad
         self.batch_size = batch_size
         self.image_size = image_size
@@ -90,5 +98,5 @@ class GlideTextImageDataset:
                          "mask": np.stack(masks), "t": t, "weights": w}
                 if lows:
                     batch["low_res"] = np.stack(lows).astype(np.float32)
-                yield batch
+                yield {k: self.rows.take(v, k) for k, v in batch.items()}
                 imgs, toks, masks, lows = [], [], [], []

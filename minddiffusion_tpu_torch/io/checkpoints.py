@@ -11,6 +11,13 @@ to the CPU. `CheckpointManager` keeps orbax's save decision: the first
 `should_save` of a directory with no checkpoint is true (orbax's initial
 save), later ones at multiples of `save_every_steps`, never at or below the
 latest saved step; it keeps the newest `keep_max` files.
+
+Under a process group only rank 0 writes (the JAX package's `_is_primary`),
+and every rank takes the same save decision: the latest saved step is read
+from rank 0's directory once, when the manager is made (a broadcast, so
+every rank must make it), and then advanced by `save` on every rank. A
+decision that each rank read from its own disk could differ between ranks,
+and a save under fsdp is a gather that every rank must join.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ import re
 from typing import Dict, Iterable, List, Optional
 
 import torch
+
+from minddiffusion_tpu_torch.parallel.mesh import rank, world_size
 
 _NAME = re.compile(r"^ckpt_(\d{8,})\.pt$")
 
@@ -46,6 +55,13 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.save_every_steps = save_every_steps
         self.keep_max = keep_max
+        self._latest = self.latest_step() if rank() == 0 else None
+        if world_size() > 1:
+            import torch.distributed as dist
+
+            box = [self._latest]
+            dist.broadcast_object_list(box, src=0)
+            self._latest = box[0]
 
     def steps(self) -> List[int]:
         if not os.path.isdir(self.directory):
@@ -61,12 +77,16 @@ class CheckpointManager:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
     def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
-        if latest is None:
+        if self._latest is None:
             return True
-        return step > latest and step % self.save_every_steps == 0
+        return step > self._latest and step % self.save_every_steps == 0
 
-    def save(self, step: int, state_dict: Dict[str, torch.Tensor]) -> None:
+    def save(self, step: int, state_dict: Optional[Dict[str, torch.Tensor]]) -> None:
+        """Write `state_dict` on rank 0 (the other ranks pass what they
+        hold, None after a gather) and drop the oldest files."""
+        self._latest = step
+        if rank() != 0:
+            return
         save_checkpoint(self.path(step), state_dict)
         for old in self.steps()[:-self.keep_max]:
             os.unlink(self.path(old))

@@ -47,6 +47,8 @@ from minddiffusion_tpu_torch.models.layers import (
     GroupNorm32, LayerNormFp32, cast_for_inference)
 from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from minddiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from minddiffusion_tpu_torch.parallel.collectives import all_gather_rows
+from minddiffusion_tpu_torch.parallel.mesh import batch_sharding
 from minddiffusion_tpu_torch.samplers import ddim, dpm_solver, plms
 from minddiffusion_tpu_torch.utils.flags import flags
 
@@ -230,26 +232,42 @@ class StableDiffusionPipeline:
 
     def build_txt2img(self, height: int = 512, width: int = 512,
                       num_steps: int = 50, sampler: str = "plms",
-                      guidance_scale: float = 9.0, batch_size: int = 1) -> Callable:
+                      guidance_scale: float = 9.0, batch_size: int = 1,
+                      mesh=None) -> Callable:
         """fn(models, tokens, uncond_tokens, generator, noise=None) -> uint8
         images (B, H, W, 3); tokens (B, L) ints. `fn.latents` (same call)
-        returns the final latent instead."""
+        returns the final latent instead.
+
+        `mesh` (parallel/mesh.make_mesh; JAX's `mesh=`): one request batch
+        split over the data ranks (dp x fsdp; batch_size must divide over
+        them), every rank with the whole weights. Each rank is called with
+        the whole batch, draws the whole x_T from `generator` and keeps its
+        rows, samples and decodes them, and every rank returns the whole
+        batch gathered back, the bytes of the one-process call. (The JAX
+        mesh variant switches to the interleaved CFG layout, a TPU-only
+        rewrite not ported.)"""
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
         f = self.models.latent_factor
         h8, w8 = height // f, width // f
         shape = (batch_size, h8, w8, 4)
+        rows = batch_sharding(mesh)
+        if batch_size % rows.count:
+            raise ValueError(f"batch_size {batch_size} does not divide over the mesh's "
+                             f"{rows.count} data ranks")
 
         @torch.inference_mode()
         def sample_latents(models: SDModels, tokens, uncond_tokens,
                            generator: Optional[torch.Generator],
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
             dev = models.device
-            tok2 = cfg_lib.fold(torch.as_tensor(uncond_tokens), torch.as_tensor(tokens))
+            tokens, uncond_tokens = (rows.take(torch.as_tensor(t), "tokens")
+                                     for t in (tokens, uncond_tokens))
+            tok2 = cfg_lib.fold(uncond_tokens, tokens)
             ctx2 = models.text_encoder(tok2.to(dev))
             eps_fn = _guided_unet(models.unet, ctx2, guidance_scale)
-            x_T = (torch.randn(shape, generator=generator, device=dev) if noise is None
-                   else _explicit("noise", noise, shape, dev))
+            x_T = rows.take(torch.randn(shape, generator=generator, device=dev)
+                            if noise is None else _explicit("noise", noise, shape, dev))
             with models.unet.hoisted():
                 return _run_sampler(sampler, eps_fn, x_T, models.schedule,
                                     num_steps, generator)
@@ -260,9 +278,9 @@ class StableDiffusionPipeline:
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
             z = sample_latents(models, tokens, uncond_tokens, generator, noise)
             img = models.vae.decode(latents.unscale_latents(z, models.scale_factor))
-            return latents.unit_range_to_uint8(img)
+            return all_gather_rows(latents.unit_range_to_uint8(img), rows)
 
-        fn.latents = sample_latents
+        fn.latents = lambda *a, **kw: all_gather_rows(sample_latents(*a, **kw), rows)
         return fn
 
     def build_img2img(self, height: int = 512, width: int = 512,

@@ -11,9 +11,14 @@ same steps as the JAX loop. `step_time_s` is the host time between two
 step dispatches: over a window it sums to the window's wall time, because
 the host waits for the device at every fetch.
 
+On a process grid the checkpoint is gathered whole first
+(parallel/collectives.full_state: every rank joins, rank 0 writes), so its
+file is the one-process format that every loader of the port reads.
+
 `ProfilerCallback` records a `torch.profiler` trace (CPU and CUDA
 activities) of steps (start_step, stop_step] and writes its Chrome trace
-and its per-op table into `log_dir`.
+and its per-op table into `log_dir` (on a grid, each rank its own files,
+named with its rank).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
+from minddiffusion_tpu_torch.parallel.collectives import full_state
+from minddiffusion_tpu_torch.parallel.mesh import rank, world_size
 from minddiffusion_tpu_torch.utils.logger import KVLogger, get_logger
 
 
@@ -76,9 +83,10 @@ class ProfilerCallback(Callback):
                 torch.cuda.synchronize()
             self._prof.__exit__(None, None, None)
             os.makedirs(self.log_dir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
+            tag = f"_rank{rank()}" if world_size() > 1 else ""    # one file a rank
+            self._prof.export_chrome_trace(os.path.join(self.log_dir, f"trace{tag}.json"))
             sort = "cuda_time_total" if torch.cuda.is_available() else "cpu_time_total"
-            with open(os.path.join(self.log_dir, "profile_ops.txt"), "w") as f:
+            with open(os.path.join(self.log_dir, f"profile_ops{tag}.txt"), "w") as f:
                 f.write(self._prof.key_averages().table(sort_by=sort, row_limit=60))
             self._prof = None
 
@@ -132,8 +140,9 @@ class Trainer:
                     self._flush(pending)
                 if save:
                     sd = state.models.state_dict()
-                    self.ckpt_manager.save(step, self.ckpt_transform(sd)
-                                           if self.ckpt_transform else sd)
+                    tree = self.ckpt_transform(sd) if self.ckpt_transform else sd
+                    self.ckpt_manager.save(step, tree if getattr(state, "mesh", None) is None
+                                           else full_state(tree))
                 if last:
                     return state
             self._flush(pending)

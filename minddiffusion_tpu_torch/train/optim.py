@@ -22,6 +22,11 @@ torch's step count as they were, and `count`, which the schedule reads,
 stays too (the JAX step's finite guard). With `finite=None` every step
 applies, as a bare optax chain does.
 
+Under fsdp the params and their gradients are FSDP2's DTensor shards: the
+fused update steps each rank's shards, and the clip reads the norm of the
+whole gradient (parallel/collectives.global_norm sums the shards' squares
+over their ranks), so every rank clips by the same factor.
+
 SD's configuration is the default (betas 0.9 / 0.98, wd 1e-6 on the decay
 set, the trainable mask, the guard). GLIDE's chain,
 optax.chain(clip_by_global_norm(1.0), adamw(lr)) (minddiffusion_tpu/cli/
@@ -31,12 +36,13 @@ wd 1e-4.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Set
+from typing import Callable, Dict, Iterable, Optional, Set
 
 import torch
 from torch import nn
 
 from minddiffusion_tpu_torch.io.sd_weights import PREFIXES
+from minddiffusion_tpu_torch.parallel.collectives import global_norm
 
 TRAINABLE_MODES = ("unet", "lora", "all", "unet+text")
 # optax.adamw's defaults over every param (the GLIDE train CLI)
@@ -125,12 +131,6 @@ class AdamW:
             opt.zero_grad(set_to_none=True)
         self.count += 1 if finite is None else finite.to(torch.int64)
         return g_norm
-
-
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """The fp32 L2 norm of every element together (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        [t.float() for t in tensors])))
 
 
 def lora_checkpoint_transform(names: Iterable[str]) -> Callable:

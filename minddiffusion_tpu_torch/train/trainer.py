@@ -18,6 +18,15 @@
 
 The step's generator is seeded from (seed, step), as the JAX step folds the
 step into its key, so a step's draws do not depend on the steps before it.
+
+On a process grid (`create_train_state(..., mesh=)`, parallel/mesh.py) each
+rank takes its rows of the global batch. It draws the global batch's draws
+and keeps its rows (`Rows`), so a step on the grid is the one-process step
+on the global batch up to the order of its sums, as the JAX package's
+sharded step is. The gradient is averaged over the data ranks, or sharded
+by FSDP2 under fsdp > 1 (parallel/collectives.gradients); the loss metrics
+are their means over the ranks, and the finite guard, `grad_norm` and the
+clip read the whole gradient.
 """
 from __future__ import annotations
 
@@ -27,9 +36,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from minddiffusion_tpu_torch.core import distributions, latents
+from minddiffusion_tpu_torch.parallel.collectives import (global_norm, global_rows,
+                                                           gradients, mean_over_ranks)
+from minddiffusion_tpu_torch.parallel.mesh import Rows, batch_sharding, shard_params
 from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 from minddiffusion_tpu_torch.train.lr_schedules import warmup_then_decay
-from minddiffusion_tpu_torch.train.optim import AdamW, global_norm, named_parameters
+from minddiffusion_tpu_torch.train.optim import AdamW, named_parameters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +66,14 @@ class TrainConfig:
 @dataclasses.dataclass
 class TrainState:
     """The models (their parameters are the train params), the optimizer
-    state, and `step`, the steps taken so far (a host count: it advances on
-    a non-finite step too, as the JAX step's does)."""
+    state, `step`, the steps taken so far (a host count: it advances on a
+    non-finite step too, as the JAX step's does), and the process grid
+    (None: one process)."""
 
     models: SDModels
     optimizer: AdamW
     step: int = 0
+    mesh: object = None
 
     @property
     def grad_params(self) -> Dict[str, torch.nn.Parameter]:
@@ -68,52 +82,57 @@ class TrainState:
         return named_parameters({"unet": self.models.unet, "text": self.models.text_encoder})
 
 
-def create_train_state(models: SDModels, config: TrainConfig) -> TrainState:
-    """Turn on grad for the UNet and text encoder, off for the VAE, and
-    build the optimizer over the trainable set."""
+def create_train_state(models: SDModels, config: TrainConfig, mesh=None) -> TrainState:
+    """Turn on grad for the UNet and text encoder, off for the VAE, place
+    the networks on `mesh` (parallel/mesh.shard_params: FSDP2 under fsdp >
+    1), and build the optimizer over the trainable set."""
     for kind, module in models.modules().items():
         module.requires_grad_(kind != "vae")
+    if mesh is not None:
+        shard_params(models.modules(), mesh)
     lr = warmup_then_decay(config.start_lr, config.end_lr, config.warmup_steps,
                            config.decay_steps, use_cosine=config.use_cosine)
     opt = AdamW(named_parameters(models.modules()), lr, weight_decay=config.weight_decay,
                 beta1=config.beta1, beta2=config.beta2, max_grad_norm=config.max_grad_norm,
                 trainable=config.trainable)
-    return TrainState(models=models, optimizer=opt)
+    return TrainState(models=models, optimizer=opt, mesh=mesh)
 
 
 def diffusion_loss(models: SDModels, images: Optional[torch.Tensor], tokens: torch.Tensor,
                    generator: Optional[torch.Generator], cond_dropout: float = 0.0,
                    latent: Optional[torch.Tensor] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   rows: Rows = Rows()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """eps-MSE loss (ddpm.py p_losses 'l_simple'). `images` (B, H, W, 3) in
-    [-1, 1], or `latent` (B, h, w, 4) already scaled; `tokens` (B, L)."""
+    [-1, 1], or `latent` (B, h, w, 4) already scaled; `tokens` (B, L).
+    `rows`: the batch is this rank's rows of a global batch; every draw,
+    explicit or from `generator`, is the global batch's, cut to them."""
     draws = draws or {}
     dev = models.device
+
+    def draw(key, fn, shape, **kw):
+        if key in draws:
+            return rows.take(draws[key], key).to(dev)
+        return global_rows(fn, rows, shape, generator=generator, device=dev, **kw)
+
     if latent is not None:
         z0 = latent.to(dev).float()
     else:
         with torch.no_grad():
             moments = models.vae.encode(images.to(dev))
-            z0 = latents.scale_latents(
-                distributions.sample(moments, generator, draws.get("enc_noise")),
-                models.scale_factor)
+            mean = distributions.split_moments(moments)[0]
+            eps = draw("enc_noise", torch.randn, mean.shape, dtype=mean.dtype)
+            z0 = latents.scale_latents(distributions.sample(moments, eps=eps),
+                                       models.scale_factor)
     b = z0.shape[0]
     ctx = models.text_encoder(tokens.to(dev))
     if cond_dropout > 0.0:
-        keep = draws.get("keep")
-        if keep is None:
-            keep = torch.rand(b, generator=generator, device=dev) < 1.0 - cond_dropout
+        keep = (rows.take(draws["keep"], "keep") if "keep" in draws
+                else draw("keep", torch.rand, (b,)) < 1.0 - cond_dropout)
         ctx = ctx * keep.to(dev, ctx.dtype)[:, None, None]
-    t = draws.get("t")
-    if t is None:
-        t = torch.randint(0, models.schedule.num_timesteps, (b,), generator=generator,
-                          device=dev)
-    t = t.to(dev).long()
-    noise = draws.get("noise")
-    if noise is None:
-        noise = torch.randn(z0.shape, generator=generator, device=dev)
-    noise = noise.to(dev).float()
+    t = draw("t", lambda shape, **kw: torch.randint(0, models.schedule.num_timesteps,
+                                                     shape, **kw), (b,)).long()
+    noise = draw("noise", torch.randn, z0.shape).float()
     x_t = models.schedule.q_sample(z0, t, noise)
     eps_hat = models.unet(x_t, t, ctx)
     mse = torch.mean(torch.square(eps_hat.float() - noise), dim=(1, 2, 3))
@@ -127,30 +146,34 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def make_loss_and_grads(config: TrainConfig, dreambooth: bool = False) -> Callable:
     """fn(state, batch, generator, draws=None) -> (metrics, grads): the loss
-    of one batch and the gradient of every `state.grad_params` entry (zeros
-    where the loss does not reach a param). `draws` (dreambooth: a pair,
-    train then reg) replace the generator's draws."""
+    of one batch and the gradient of every `state.grad_params` entry
+    (parallel/collectives.gradients: zeros where the loss does not reach a
+    param, averaged over the data ranks on a grid, where the metrics are
+    their means over the ranks too). `draws` (dreambooth: a pair, train
+    then reg) replace the generator's draws; on a grid they are the global
+    batch's, as the generator's are."""
 
     def fn(state: TrainState, batch: Dict[str, torch.Tensor],
            generator: Optional[torch.Generator], draws=None):
         models = state.models
+        rows = batch_sharding(state.mesh)
         d_train, d_reg = draws if dreambooth and draws is not None else (draws, None)
         loss, metrics = diffusion_loss(
             models, batch.get("image"), batch["tokens"], generator,
-            cond_dropout=config.cond_dropout, latent=batch.get("latent"), draws=d_train)
+            cond_dropout=config.cond_dropout, latent=batch.get("latent"), draws=d_train,
+            rows=rows)
         if dreambooth:
             reg_loss, _ = diffusion_loss(
                 models, batch.get("reg_image"), batch["reg_tokens"], generator,
-                latent=batch.get("reg_latent"), draws=d_reg)
+                latent=batch.get("reg_latent"), draws=d_reg, rows=rows)
             metrics["train_loss"] = loss
             metrics["reg_loss"] = reg_loss
             loss = loss + config.prior_loss_weight * reg_loss
             metrics["loss"] = loss
-        params = state.grad_params
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(params.items(), grads)}
-        return {k: v.detach() for k, v in metrics.items()}, grads
+        grads = gradients(loss, lambda: state.grad_params, set(state.optimizer.trainable),
+                          state.mesh)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (metrics if state.mesh is None else mean_over_ranks(metrics)), grads
 
     return fn
 
@@ -162,7 +185,8 @@ def make_train_step(config: TrainConfig, dreambooth: bool = False) -> Callable:
 
     batch: {"image" (B, H, W, 3) fp32, "tokens" (B, L)} or {"latent",
     "tokens"}, plus {"reg_image" / "reg_latent", "reg_tokens"} when
-    `dreambooth` (loss = loss_train + prior_loss_weight * loss_reg)."""
+    `dreambooth` (loss = loss_train + prior_loss_weight * loss_reg); on a
+    grid, this rank's rows of the global batch (parallel/mesh.shard_batch)."""
     loss_and_grads = make_loss_and_grads(config, dreambooth)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,

@@ -1,9 +1,11 @@
 """Run phase 6 (K4 at its sites), phase 7 (txt2img 768x1024), phase 16 (K9
-in both modes), phase 17 (K6 in both memory orders) or phase 18 (K5 at
-ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) of
-chip_smoke.py alone, from this checkout or another one.
+in both modes), phase 17 (K6 in both memory orders), phase 18 (K5 at
+ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) or phase 31
+(the SD2 finetune step on the process grid: two ranks on the card at dp 2
+and fsdp 2, and the train CLI under torchrun) of chip_smoke.py alone, from
+this checkout or another one.
 
-    python3 scripts/smoke_phases.py [--root DIR] 6 7 16 17 18
+    python3 scripts/smoke_phases.py [--root DIR] 6 7 16 17 18 31
 
 `--root DIR` imports chip_smoke.py and the package from DIR (e.g. the parent
 commit, unpacked by `git archive` into `checkout/`), so that two commits are
@@ -64,8 +66,17 @@ def main() -> int:
         elif phase == "18":
             chip_smoke.phase18(torch.Generator(device="cuda").manual_seed(0),
                                {"fused_ff": dict(cases=[])})
+        elif phase == "31":
+            import tempfile
+
+            from minddiffusion_tpu_torch.ops import _build
+
+            for source in ("packed_attention", "winograd"):    # K1 and K2, the step's
+                _build.build(source)
+            with tempfile.TemporaryDirectory() as tmp:
+                chip_smoke.phase31(tmp)
         else:
-            raise SystemExit(f"smoke_phases: phase {phase} is not 6, 7, 16, 17 or 18")
+            raise SystemExit(f"smoke_phases: phase {phase} is not 6, 7, 16, 17, 18 or 31")
     return 0
 
 

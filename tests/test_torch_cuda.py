@@ -1039,3 +1039,60 @@ def test_cfg_fold_on_the_kernel_path_matches_the_plain_path(cuda):
     assert sorted(batches) == [b] + [2 * b] * 6
     rel = ((folded - ref).norm() / ref.norm()).item()
     assert torch.isfinite(folded).all() and rel <= 2e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(2, 1), (1, 2)], ids=["dp2", "fsdp2"])
+def test_sd_step_on_two_ranks_of_one_card(cuda, tmp_path, grid):
+    """The grid's train step on one card (two ranks, gloo over CUDA tensors:
+    NCCL takes one rank a GPU): a tiny SD2 at bf16 compute, 2 steps at dp 2
+    or fsdp 2 against one process on the same global batch and draws. The
+    metrics within bf16's 1e-2, the checkpoint (gathered whole by rank 0)
+    in the one-process format, its frozen VAE and text encoder bitwise."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dist as td
+
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+    from minddiffusion_tpu_torch.models.clip import CLIPTextConfig
+    from minddiffusion_tpu_torch.models.unet import UNetConfig
+    from minddiffusion_tpu_torch.models.vae import VAEConfig
+
+    unet = dict(model_channels=64, channel_mult=(1, 2), attention_resolutions=(1, 2),
+                num_res_blocks=1, context_dim=32, num_head_channels=8,
+                use_linear_in_transformer=True)
+    vae = dict(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
+    text = dict(width=32, layers=2, heads=4, use_quick_gelu=False)
+    g = torch.Generator().manual_seed(0)
+    models = SDModels.create(family="sd2", dtype=torch.float32, device="cpu",
+                             param_dtype=torch.float32, generator=g,
+                             unet_config=UNetConfig(**unet), vae_config=VAEConfig(**vae),
+                             text_config=CLIPTextConfig(**text))
+    torch.save(dict(models.state_dict()), tmp_path / "w.pt")
+    b = 4
+    batch = {"image": torch.rand(b, 64, 64, 3, generator=g) * 2 - 1,
+             "tokens": torch.randint(0, 49000, (b, 77), generator=g).int()}
+    draws = [{"t": torch.randint(0, 1000, (b,), generator=g),
+              "noise": torch.randn(b, 8, 8, 4, generator=g),
+              "enc_noise": torch.randn(b, 8, 8, 4, generator=g)} for _ in range(2)]
+    torch.save({"batch": batch, "draws": draws}, tmp_path / "d.pt")
+    cfg = dict(family="sd2", unet=unet, vae=vae, text=text, device="cuda:0",
+               dtype=torch.bfloat16, param_dtype=torch.float32,
+               train=dict(start_lr=1e-4, warmup_steps=0))
+    args = (cfg, str(tmp_path / "w.pt"), str(tmp_path / "d.pt"))
+    one = td.sd_train(*args, None, str(tmp_path / "one"))
+    ranks = td.start_ranks([(td.sd_train, (*args, grid, str(tmp_path / "grid")))], 2,
+                           tmp_path, timeout=300).join()
+    got = ranks[0][0]
+    assert ranks[1][0]["ckpt"] is None and got["saved"] == one["saved"] == [1, 2]
+    for r in ranks:
+        for m, ref in zip(r[0]["metrics"], one["metrics"]):
+            for k in ("loss", "grad_norm"):
+                assert abs(m[k] - ref[k]) <= 1e-2 * abs(ref[k]), (k, m[k], ref[k])
+    assert list(got["ckpt"]) == list(one["ckpt"])
+    for name, ref in one["ckpt"].items():
+        assert got["ckpt"][name].shape == ref.shape and got["ckpt"][name].dtype == ref.dtype
+        if not name.startswith("model.diffusion_model."):
+            assert torch.equal(got["ckpt"][name], ref), name

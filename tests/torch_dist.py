@@ -1,0 +1,231 @@
+"""Multi-process runs of the port on the CPU for tests/test_torch_parallel.py.
+
+`start_ranks(jobs, world, tmp_path).join()` starts `world` spawned
+processes, each in a gloo process group that meets through a FileStore in
+`tmp_path` (no TCP port: several pytest workers share the machine), on one
+intra-op thread, runs each job `(fn, args)` in turn on every rank, and
+returns each rank's results. One session carries every job, so the
+processes start once, and the caller can work while they run. A rank that
+raises fails `join` with its traceback; ranks still running at the
+deadline are killed and `join` fails, so no test hangs.
+
+The workers below run on the port alone (no JAX import in a child) and
+take plain data: configs as keyword dicts, weights and batches as files
+that the parent wrote with torch.save.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import os
+import pickle
+import time
+import traceback
+
+import torch
+
+
+def _child(jobs, rank: int, world: int, store: str, out: str) -> None:
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+        result = ("ok", [fn(*args) for fn, args in jobs])
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        result = ("error", traceback.format_exc())
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+class Session:
+    """`world` spawned ranks running `jobs` (start_ranks); `join` waits for
+    them, up to `timeout` seconds from the start."""
+
+    def __init__(self, jobs, world: int, tmp_path, timeout: float):
+        ctx = multiprocessing.get_context("spawn")
+        store = os.path.join(str(tmp_path), f"store_{time.time_ns()}")
+        self.outs = [f"{store}.rank{r}" for r in range(world)]
+        self.procs = [ctx.Process(target=_child, args=(jobs, r, world, store, self.outs[r]))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.time() + timeout
+        self.timeout = timeout
+
+    def join(self) -> list:
+        """-> one list a rank of each job's result."""
+        for p in self.procs:
+            p.join(max(self.deadline - time.time(), 0.1))
+        alive = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if alive:
+            raise TimeoutError(f"ranks {alive} still running after {self.timeout} s")
+        results = []
+        for r, path in enumerate(self.outs):
+            if not os.path.exists(path):
+                raise RuntimeError(f"rank {r} exited with code {self.procs[r].exitcode} "
+                                   "and no result")
+            with open(path, "rb") as f:
+                status, value = pickle.load(f)
+            if status != "ok":
+                raise RuntimeError(f"rank {r} failed:\n{value}")
+            results.append(value)
+        return results
+
+
+def start_ranks(jobs, world: int, tmp_path, timeout: float = 240.0) -> Session:
+    """Start each (fn, args) of `jobs`, in turn, on `world` ranks; the
+    caller works on while they run and then calls `.join()`."""
+    return Session(jobs, world, tmp_path, timeout)
+
+
+def _sd_models(cfg: dict, weights: str):
+    from minddiffusion_tpu_torch.models.clip import CLIPTextConfig
+    from minddiffusion_tpu_torch.models.unet import UNetConfig
+    from minddiffusion_tpu_torch.models.vae import VAEConfig
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+
+    device = cfg.get("device", "cpu")
+    if device != "cpu":
+        torch.cuda.set_device(device)
+    models = SDModels.create(
+        family=cfg["family"], dtype=cfg.get("dtype", torch.float32), device=device,
+        param_dtype=cfg.get("param_dtype"), unet_config=UNetConfig(**cfg["unet"]),
+        vae_config=VAEConfig(**cfg["vae"]), text_config=CLIPTextConfig(**cfg["text"]))
+    models.load_state_dict(torch.load(weights, weights_only=True))
+    return models
+
+
+class OneBatch:
+    """A dataset of one epoch of one batch (numpy dict)."""
+
+    def __init__(self, batch: dict):
+        self.batch = batch
+
+    def epoch(self, epoch_index: int = 0):
+        yield self.batch
+
+
+def replicated() -> list:
+    """parallel.replicate on a rank-dependent tensor: every rank's copy
+    after it."""
+    from minddiffusion_tpu_torch.parallel import replicate
+    from minddiffusion_tpu_torch.parallel.mesh import rank
+
+    return replicate({"x": torch.full((3,), float(rank()))})["x"].tolist()
+
+
+def sd_train(cfg: dict, weights: str, data: str, grid, ckpt_dir: str) -> dict:
+    """SD train steps through `Trainer` (the batch in `data` each step, with
+    that step's global draws) on the grid `grid` ((dp, fsdp); None: one
+    process, no group), on this rank's rows; a checkpoint every step,
+    gathered whole and written by rank 0, is read back. -> {"metrics"
+    (a list, one a step), "ckpt" (rank 0; None elsewhere), "saved",
+    "resolved"}: one process also marks each gradient's resolved elements,
+    those 0 or above 1e-3 of their tensor's largest in every step."""
+    from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
+    from minddiffusion_tpu_torch.parallel.mesh import rank
+    from minddiffusion_tpu_torch.train.loop import Callback, Trainer
+    from minddiffusion_tpu_torch.train.trainer import (TrainConfig, create_train_state,
+                                                       make_loss_and_grads, make_train_step)
+
+    models = _sd_models(cfg, weights)
+    device = models.device
+    blob = torch.load(data, weights_only=True, map_location=device)
+    mesh = None if grid is None else make_mesh(MeshConfig(*grid), device.type)
+    config = TrainConfig(**cfg["train"])
+    state = create_train_state(models, config, mesh=mesh)
+    step = make_train_step(config)
+    batch = blob["batch"] if mesh is None else shard_batch(blob["batch"], mesh)
+    class Record(Callback):
+        def __init__(self):
+            self.steps = []
+
+        def on_step_end(self, step, metrics):
+            self.steps.append(dict(metrics))
+
+    record = Record()
+    manager = CheckpointManager(ckpt_dir, save_every_steps=1)
+    steps = len(blob["draws"])
+    resolved = {}
+    loss_and_grads = make_loss_and_grads(config)
+
+    def step_fn(s, b, seed):
+        draws = blob["draws"][s.step]
+        if mesh is None:        # which gradient elements are resolved in every step
+            for n, g in loss_and_grads(s, b, None, draws)[1].items():
+                big = (g.abs() > 1e-3 * g.abs().max()) | (g == 0)
+                resolved[n] = big & resolved.get(n, big)
+        return step(s, b, seed, draws=draws)
+
+    Trainer(step_fn, OneBatch({k: v.cpu().numpy() for k, v in batch.items()}), seed=0,
+            device=device, callbacks=[record], ckpt_manager=manager,
+            max_steps=steps).fit(state, epochs=steps)
+    ckpt = manager.restore_latest() if rank() == 0 else None
+    return {"metrics": record.steps, "ckpt": ckpt, "saved": manager.steps(),
+            "resolved": resolved}
+
+
+def glide_train(cfg: dict, weights: str, data: str, grid) -> dict:
+    """One GLIDE step (cli/glide_train.build_step) on the grid `grid` (None:
+    one process, which also returns the step's gradient) with the global
+    noise in `data`. -> {"metrics", "params", "ema"[, "grads"]}, gathered
+    whole on rank 0."""
+    from minddiffusion_tpu_torch.cli import glide_train as gt
+    from minddiffusion_tpu_torch.models.glide import GlideUNetConfig, XfConfig
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
+    from minddiffusion_tpu_torch.parallel.collectives import full_state
+
+    model = gt.build_model(cfg["super_res"], GlideUNetConfig(**cfg["unet"]),
+                           XfConfig(**cfg["xf"]), torch.device("cpu"), torch.float32, 0)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    blob = torch.load(data, weights_only=True)
+    mesh = None if grid is None else make_mesh(MeshConfig(*grid), "cpu")
+    state = gt.create_train_state(model, cfg["lr"], 0, 10, mesh=mesh)
+    schedule = gt.glide_schedule(cfg["super_res"])
+    step = gt.build_step(schedule, cfg["super_res"], 0.9)
+    batch = blob["batch"] if mesh is None else shard_batch(blob["batch"], mesh)
+    extra = {}
+    if mesh is None:
+        extra["grads"] = gt.loss_and_grads(state, schedule, cfg["super_res"], batch,
+                                           blob["noise"])[1]
+    metrics = {k: v.item() for k, v in step(state, batch, 0, noise=blob["noise"]).items()}
+    tree = {"params": state.models.state_dict(), "ema": state.ema}
+    return {"metrics": metrics, **(full_state(tree) or {}), **extra}
+
+
+def run_cli(module: str, argv: list, assets: str = None):
+    """`main(argv)` of a CLI module of the port on every rank; -> the steps
+    taken, the params gathered whole (rank 0; None elsewhere) and this
+    rank's own copy where it holds them whole (under dp; None under fsdp)."""
+    import importlib
+
+    from minddiffusion_tpu_torch.parallel.collectives import full_state, is_dtensor
+
+    if assets:
+        os.environ["MINDDIFFUSION_TPU_ASSETS"] = assets
+    state = importlib.import_module(module).main(argv)
+    params = state.models.state_dict()
+    own = None if any(is_dtensor(v) for v in params.values()) else \
+        {k: v.detach().clone() for k, v in params.items()}
+    return state.step, full_state(params), own
+
+
+def txt2img(cfg: dict, weights: str, data: str, grid) -> torch.Tensor:
+    """StableDiffusionPipeline.build_txt2img(mesh=) over the grid (None: one
+    process) on the request batch and explicit x_T in `data`."""
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    models = _sd_models(cfg, weights)
+    blob = torch.load(data, weights_only=True)
+    mesh = None if grid is None else make_mesh(MeshConfig(*grid), "cpu")
+    fn = StableDiffusionPipeline(models).build_txt2img(mesh=mesh, **cfg["txt2img"])
+    return fn(models, blob["tokens"], blob["uncond"], None, noise=blob["noise"])
