@@ -3244,8 +3244,12 @@ def phase30(tmp: str) -> None:
     del models, back
     torch.cuda.empty_cache()
 
-GRID_BATCH = 4          # phase 31's global batch: 2 rows a rank
-GRID_MODES = {"dp2": (2, 1), "fsdp2": (1, 2)}
+GRID_BATCH = 4          # phase 31's global batch: 2 rows a rank (4 under tp)
+GRID_MODES = {"dp2": (2, 1, 1), "fsdp2": (1, 2, 1), "tp2": (1, 1, 2)}
+# K1's launches a rank in tp2's step by (B, N, heads): the ds1 self-attentions
+# (5 heads, which tp 2 does not divide: every head on every rank), the ds2
+# ones on each rank's 5 heads of 10, the VAE-encode mid (D 512)
+TP2_K1 = {(GRID_BATCH, 4096, 5): 5, (GRID_BATCH, 1024, 5): 5, (GRID_BATCH, 4096, 1): 1}
 # The bound on the UNet update's relative L2 of a grid step against the
 # one-process step: AdamW's first update (warmup 0) is about lr * sign(g)
 # per element, so an element whose gradient lies within the rounding
@@ -3283,15 +3287,19 @@ def grid_rank(rank: int, store: str, tmp: str) -> None:
 def grid_work(rank: int, tmp: str) -> dict:
     """Phase 31 (a) on one rank: rank 0 takes the one-process step on the
     global batch of GRID_BATCH with fixed draws, then both ranks take the
-    same step at dp 2 and at fsdp 2 on their rows, a rank's first step
-    after one warm loss and gradient. Each mode: the step's metrics, its all-zero UNet
-    gradients (counted where the optimizer takes them), the launches,
-    s/step and peak memory of the step, and on rank 0 the UNet update's
-    relative L2 against the one-process one (both held on the host)."""
+    same step at dp 2, at fsdp 2 and at tp 2 on their rows, a rank's first
+    step after one warm loss and gradient. Each mode: the step's metrics,
+    its all-zero UNet gradients (counted where the optimizer takes them),
+    the launches (K1's by (B, N, heads)), s/step and peak memory of the
+    step, and on rank 0 the UNet update's relative L2 against the
+    one-process one (both held on the host). Under tp 2 rank 0 also writes
+    the checkpoint gathered whole (tp pieces joined) to tmp/tp2_ckpt.pt,
+    its names, shapes and dtypes held against the one-process state dict's."""
     import torch.distributed as dist
 
+    from minddiffusion_tpu_torch.ops import flash_attention as fa
     from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
-    from minddiffusion_tpu_torch.parallel.collectives import is_dtensor, whole
+    from minddiffusion_tpu_torch.parallel.collectives import full_state, is_dtensor, whole
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
     from minddiffusion_tpu_torch.train import trainer
 
@@ -3304,6 +3312,7 @@ def grid_work(rank: int, tmp: str) -> dict:
              "enc_noise": torch.randn(GRID_BATCH, 64, 64, 4, generator=g, device="cuda")}
     config = trainer.TrainConfig(warmup_steps=0)
     ref_update: dict = {}
+    ref_layout: list = []
 
     def run(mesh, warm: bool) -> dict:
         torch.cuda.empty_cache()
@@ -3326,6 +3335,12 @@ def grid_work(rank: int, tmp: str) -> dict:
                                    for g in grads.values()]).float()
             if is_dtensor(next(iter(grads.values()))):
                 dist.all_reduce(nonzero)         # each rank holds a shard of each
+            if state.tp is not None:             # and each tp rank a piece of some
+                piece = torch.tensor([n in state.tp.pieces for n in grads],
+                                     device=nonzero.device)
+                summed = nonzero.clone()
+                dist.all_reduce(summed, group=state.tp.group)
+                nonzero = torch.where(piece, summed, nonzero)
             zero.append(int((nonzero == 0).sum().item()))
             return opt_step(grads, finite)
 
@@ -3333,19 +3348,38 @@ def grid_work(rank: int, tmp: str) -> dict:
         step = trainer.make_train_step(config)
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.time()
-        metrics = step(state, rows, 0, draws)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
+        metrics = {}
+
+        def timed_step():
+            t0 = time.time()
+            metrics.update(step(state, rows, 0, draws))
+            torch.cuda.synchronize()
+            metrics["s_step"] = time.time() - t0
+
+        k1 = launch_histogram(fa, "flash_attention_packed",
+                              lambda q, k, v, heads, *a, **kw: (*q.shape[:2], heads), timed_step)
+        dt = metrics.pop("s_step")
         counts = {k: v for k, v in read_counts().items() if v}
         del state.optimizer.step        # the wrapper's cycle would keep the state alive
         out = dict(metrics={k: v.item() for k, v in metrics.items()}, zero=zero[0],
                    n_unet=len(state.optimizer.trainable), counts=counts, s_step=dt,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, k1=k1)
+        if mesh is None:
+            ref_layout.extend((n, tuple(v.shape), v.dtype)
+                              for n, v in models.state_dict().items())
+        elif state.tp is not None:      # the checkpoint, gathered whole by rank 0
+            t1 = time.time()
+            tree = full_state(models.state_dict(), state.tp)
+            if rank == 0:
+                got = [(n, tuple(v.shape), v.dtype) for n, v in tree.items()]
+                assert got == ref_layout, [a for a, b in zip(got, ref_layout) if a != b][:5]
+                torch.save(tree, os.path.join(tmp, "tp2_ckpt.pt"))
+                out["ckpt_s"] = time.time() - t1
+            del tree
         num = den = 0.0
         with torch.no_grad():
-            for n, p in models.unet.state_dict().items():   # every rank: a gather under fsdp
-                p = whole(p)
+            for n, p in models.unet.state_dict().items():   # every rank: a gather under fsdp / tp
+                p = whole(p, "model.diffusion_model." + n, state.tp)
                 if rank or n not in init:
                     continue
                 update = p.float() - init[n].cuda()
@@ -3365,8 +3399,8 @@ def grid_work(rank: int, tmp: str) -> dict:
     if rank == 0:
         result["ref"] = run(None, warm=True)
     dist.barrier()
-    for i, (name, (dp, fsdp)) in enumerate(GRID_MODES.items()):
-        result[name] = run(make_mesh(MeshConfig(dp, fsdp), "cuda"), warm=i == 0)
+    for i, (name, grid) in enumerate(GRID_MODES.items()):
+        result[name] = run(make_mesh(MeshConfig(*grid), "cuda"), warm=i == 0)
         dist.barrier()
     return result
 
@@ -3385,9 +3419,11 @@ def bpe_merges(path: str) -> None:
 def phase31(tmp: str) -> dict:
     """SD2 finetune 512^2 at full width on the process grid, on the one card.
     (a) Two ranks on the card, each a gloo group over CUDA tensors (NCCL
-    refuses two ranks on one GPU): one step at dp 2 and one at fsdp 2 on
-    a global batch of GRID_BATCH (2 rows a rank), warmup 0, fixed draws,
-    each against the one-process step on the same batch and draws. (b)
+    refuses two ranks on one GPU): one step at dp 2, one at fsdp 2 (2 rows
+    a rank) and one at tp 2 (every row on both ranks) on a global batch of
+    GRID_BATCH, warmup 0, fixed draws, each against the one-process step on
+    the same batch and draws; tp 2's checkpoint, written by rank 0, read
+    back strictly by `build_sd`. (b)
     `python -m torch.distributed.run --nproc_per_node 1 -m
     minddiffusion_tpu_torch.cli.train` at full width (NCCL, world 1),
     --dp -1 --fsdp 1, 2 steps: its backend, its loss, one checkpoint from
@@ -3409,12 +3445,12 @@ def phase31(tmp: str) -> dict:
     for p in procs:
         p.start()
     for p in procs:
-        p.join(max(600 - (time.time() - t0), 1))
+        p.join(max(720 - (time.time() - t0), 1))
     alive = [p for p in procs if p.is_alive()]
     for p in alive:
         p.kill()
         p.join()
-    assert not alive, "phase 31: a rank did not finish in 600 s"
+    assert not alive, "phase 31: a rank did not finish in 720 s"
     ranks = []
     for r in range(2):
         with open(os.path.join(tmp, f"rank{r}.pt"), "rb") as f:
@@ -3434,6 +3470,8 @@ def phase31(tmp: str) -> dict:
             assert m["metrics"]["grads_finite"] == 1.0, (name, r)
             assert m["zero"] == ref["zero"], (name, r, m["zero"], ref["zero"])
             assert m["counts"] == expected, (name, r, m["counts"], expected)
+            if name == "tp2":
+                assert m["k1"] == TP2_K1, (name, r, m["k1"], TP2_K1)
         rel = ranks[0][name]["update_rel_l2"]
         log(f"[phase 31] sd2 finetune 512x512 {name} on 2 ranks of one card (gloo over CUDA "
             f"tensors), global batch {GRID_BATCH}: loss "
@@ -3443,7 +3481,9 @@ def phase31(tmp: str) -> dict:
             f"{ref['metrics']['grad_norm']:.6f}; UNet update rel_l2 vs one process {rel:.4e} "
             f"(bound {GRID_UPDATE_TOL}); all-zero UNet grads "
             f"{[res[name]['zero'] for res in ranks]} of {ref['n_unet']} (one process "
-            f"{ref['zero']}); launches a rank a step {[res[name]['counts'] for res in ranks]}; "
+            f"{ref['zero']}); launches a rank a step {[res[name]['counts'] for res in ranks]}, "
+            f"K1's by (B, N, heads) {[res[name]['k1'] for res in ranks]} (one process "
+            f"{ref['k1']}); "
             f"s_per_step {[round(res[name]['s_step'], 4) for res in ranks]} (one process "
             f"{ref['s_step']:.4f}); peak_mem_gb a rank "
             f"{[round(res[name]['peak_gb'], 2) for res in ranks]} (one process "
@@ -3451,6 +3491,21 @@ def phase31(tmp: str) -> dict:
         assert rel <= GRID_UPDATE_TOL, (name, rel)
         by_path[f"sd2_finetune_512_b{GRID_BATCH}_{name}_rank0"] = {
             k: ranks[0][name]["counts"].get(k, 0) for k in KERNELS}
+    path = os.path.join(tmp, "tp2_ckpt.pt")
+    t1 = time.time()
+    back = common.build_sd("sd2", "bf16", torch.device("cuda"), ckpt_path=path,
+                           param_dtype=torch.float32)           # a strict load
+    name = "model.diffusion_model.input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight"
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    assert torch.equal(back.unet.state_dict()[name[len("model.diffusion_model."):]].cpu(),
+                       saved[name])
+    log(f"[phase 31] tp2: rank 0 gathered the tp pieces into one checkpoint ("
+        f"{len(saved)} tensors, the one-process state dict's names, order, shapes and "
+        f"dtypes; {os.path.getsize(path) / 1e9:.3f} GB) in {ranks[0]['tp2']['ckpt_s']:.1f} s, "
+        f"build_sd read it back (strict) in {time.time() - t1:.1f} s")
+    del back, saved
+    os.remove(path)
+    torch.cuda.empty_cache()
 
     # (b) the train CLI under torchrun: NCCL, world 1
     data, assets, out = (os.path.join(tmp, d) for d in ("cli_data", "cli_assets", "cli_out"))

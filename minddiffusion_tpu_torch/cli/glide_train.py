@@ -22,7 +22,10 @@ node's batch (its t and weights with them), the noise drawn for the global
 batch and cut to the rank's rows, the gradient averaged over the data
 ranks or sharded by FSDP2, the EMA kept on what each rank holds (the whole
 params under dp, its shards under fsdp), checkpoints gathered whole and
-written by rank 0.
+written by rank 0. A tp grid is reached through the API, as in the JAX
+package (no flag): `create_train_state(..., mesh=make_mesh(MeshConfig(tp=
+2)))` places the projections' tp pieces, and the EMA keeps each rank's
+pieces.
 
 Differences from the JAX CLI: the step is eager PyTorch (the JAX CLI jits it
 with utils/xla_opts); --pretrained_ckpt is a torch state dict in the port's
@@ -49,7 +52,7 @@ from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
 from minddiffusion_tpu_torch.models.glide import (
     GlideUNetConfig, SuperResText2ImUNet, Text2ImUNet, XfConfig)
 from minddiffusion_tpu_torch.parallel.collectives import global_rows, gradients, mean_over_ranks
-from minddiffusion_tpu_torch.parallel.mesh import batch_sharding, shard_params
+from minddiffusion_tpu_torch.parallel.mesh import batch_sharding, data_group, shard_params
 from minddiffusion_tpu_torch.pipelines.glide_cascade import init_random_glide_
 from minddiffusion_tpu_torch.train.ema import init_ema, update_ema
 from minddiffusion_tpu_torch.train.glide_loss import glide_diffusion_loss
@@ -138,14 +141,15 @@ def glide_schedule(super_res: bool, diffusion_steps: int = 1000):
 @dataclasses.dataclass
 class GlideTrainState:
     """The model (its params are the train params), the optimizer, the EMA
-    (name -> tensor), `step`, the steps taken, and the process grid (None:
-    one process)."""
+    (name -> tensor), `step`, the steps taken, the process grid (None: one
+    process) and its tp record (None under tp 1)."""
 
     models: Text2ImUNet
     optimizer: AdamW
     ema: Dict[str, torch.Tensor]
     step: int = 0
     mesh: object = None
+    tp: object = None
 
     @property
     def params(self) -> Dict[str, torch.nn.Parameter]:
@@ -156,13 +160,13 @@ def create_train_state(model: Text2ImUNet, lr: float, warmup_steps: int,
                        decay_steps: int, mesh=None) -> GlideTrainState:
     """optax.chain(clip_by_global_norm(1.0), adamw(warmup_then_decay(lr,
     lr * 0.01, warmup, decay))) over every param, and the EMA at the
-    params, after the model is placed on `mesh` (FSDP2 under fsdp > 1)."""
-    if mesh is not None:
-        shard_params({"glide": model}, mesh)
+    params, after the model is placed on `mesh` (tp pieces under tp > 1,
+    FSDP2 under fsdp > 1)."""
+    tp = shard_params({"glide": model}, mesh, {"glide": ""}) if mesh is not None else None
     params = dict(model.named_parameters())
     schedule = warmup_then_decay(lr, lr * 0.01, warmup_steps, decay_steps)
-    return GlideTrainState(models=model, optimizer=AdamW(params, schedule, **GLIDE_ADAMW),
-                           ema=init_ema(params), mesh=mesh)
+    return GlideTrainState(models=model, optimizer=AdamW(params, schedule, tp=tp, **GLIDE_ADAMW),
+                           ema=init_ema(params), mesh=mesh, tp=tp)
 
 
 def loss_and_grads(state: GlideTrainState, schedule, super_res: bool,
@@ -181,7 +185,8 @@ def loss_and_grads(state: GlideTrainState, schedule, super_res: bool,
         model_fn, schedule, batch["image"], batch["tokens"], batch["mask"], batch["t"],
         batch["weights"], noise)
     grads = gradients(loss, lambda: state.params, set(state.optimizer.trainable), state.mesh)
-    return (metrics if state.mesh is None else mean_over_ranks(metrics)), grads
+    return (metrics if state.mesh is None else
+            mean_over_ranks(metrics, data_group(state.mesh))), grads
 
 
 def build_step(schedule, super_res: bool, ema_decay: float) -> Callable:

@@ -14,6 +14,13 @@ to_q, to_k, to_v and to_out.0 of every CrossAttention carry a rank-r
 adapter (models/lora.LoRALinear: state names `<proj>.lora_a` (in, r),
 `<proj>.lora_b` (r, out) beside the base `<proj>.weight`).
 
+Under tensor parallelism (parallel/tensor_parallel.py) a CrossAttention
+whose projections hold tp pieces computes this rank's channels of q, k, v,
+attention on its heads (on every head, q, k, v gathered, where the heads
+do not divide by tp), and to_out.0 row parallel; a FeedForward whose
+GEGLU proj holds a piece ([x_r; gate_r]) computes its features, and
+ff.net.2 (whole) takes their columns and sums over the tp ranks.
+
 Two sampling savings of the JAX package: inside a `layers.hoisted` scope
 a cross-attention computes to_k(context) and to_v(context) once for the
 context tensor it is given (LoRA's projections the same way), and with
@@ -34,6 +41,7 @@ from minddiffusion_tpu_torch.models.layers import (
     Conv1x1, GroupNorm32, LayerNormFp32, Linear, reuse)
 from minddiffusion_tpu_torch.models.lora import LoRALinear
 from minddiffusion_tpu_torch.ops.attention import packed_attention
+from minddiffusion_tpu_torch.parallel.tensor_parallel import holds_piece
 
 
 class CrossAttention(nn.Module):
@@ -57,8 +65,12 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Sequential(proj(inner, query_dim, True), nn.Identity())
         self.kv_cache: Optional[dict] = None     # a dict inside layers.hoisted
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp is not None and holds_piece(self.to_q):
+            return self._forward_tp(x, context)
         q = self.to_q(x)
         if context is None:
             k, v = self.to_k(x), self.to_v(x)
@@ -67,6 +79,17 @@ class CrossAttention(nn.Module):
                          lambda: (self.to_k(context), self.to_v(context)))
         out = packed_attention(q, k, v, self.heads, impl=self.attn_impl)
         return self.to_out(out)
+
+    def _forward_tp(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        tp = self.tp
+        xc = tp.copy(x)
+        cc = xc if context is None else tp.copy(context)
+        q = tp.column_layer(xc, self.to_q)
+        k, v = reuse(self.kv_cache if context is not None else None, context,
+                     lambda: (tp.column_layer(cc, self.to_k), tp.column_layer(cc, self.to_v)))
+        out = tp.attention(q, k, v, self.heads,
+                           lambda q, k, v, h: packed_attention(q, k, v, h, impl=self.attn_impl))
+        return tp.row(out, self.to_out[0])
 
 
 class GEGLU(nn.Module):
@@ -85,8 +108,14 @@ class FeedForward(nn.Module):
         self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Identity(),
                                  Linear(dim * mult, dim))
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        proj = self.net[0].proj
+        if self.tp is None or not holds_piece(proj):
+            return self.net(x)
+        h, gate = self.tp.column_layer(self.tp.copy(x), proj, parts=2).chunk(2, dim=-1)
+        return self.tp.row(h * F.gelu(gate, approximate="tanh"), self.net[2])
 
 
 class BasicTransformerBlock(nn.Module):

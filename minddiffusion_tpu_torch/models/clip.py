@@ -13,6 +13,13 @@ the vocabulary are clipped to it (JAX `take(..., mode='clip')`). Returns the
 full final-LayerNorm sequence (B, L, width) in fp32: the UNet's context.
 The activations run in `compute_dtype`, or in the weights' dtype when it is
 None.
+
+Under tensor parallelism (parallel/tensor_parallel.py) an attention whose
+in_proj_weight holds a tp piece reads it as [q_r; k_r; v_r] with the same
+blocks of the whole in_proj_bias, attends on its heads // tp heads (every
+head, gathered, where they do not divide), and out_proj is row parallel;
+an MLP whose c_fc holds a piece is column parallel there and row parallel
+at c_proj.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from torch import nn
 
 from minddiffusion_tpu_torch.models.layers import LayerNormFp32, Linear
 from minddiffusion_tpu_torch.ops.attention import einsum_attention
+from minddiffusion_tpu_torch.parallel.tensor_parallel import holds_piece
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +67,22 @@ class CausalSelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = Linear(width, width)
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         b, l, w = x.shape
+
+        def attend(q, k, v, heads):
+            q, k, v = (t.reshape(b, l, heads, -1) for t in (q, k, v))
+            return einsum_attention(q, k, v, bias=bias).reshape(b, l, -1)
+
+        tp = self.tp
+        if tp is not None and self.in_proj_weight.shape[0] != 3 * w:
+            q, k, v = tp.column(tp.copy(x), self.in_proj_weight, self.in_proj_bias,
+                                parts=3).chunk(3, dim=-1)
+            return tp.row(tp.attention(q, k, v, self.heads, attend), self.out_proj)
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
-        q, k, v = (t.reshape(b, l, self.heads, w // self.heads)
-                   for t in qkv.chunk(3, dim=-1))
-        return self.out_proj(einsum_attention(q, k, v, bias=bias).reshape(b, l, w))
+        return self.out_proj(attend(*qkv.chunk(3, dim=-1), self.heads))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -82,14 +100,18 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp.c_fc = Linear(width, 4 * width)
         self.mlp.c_proj = Linear(4 * width, width)
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), bias)
-        h = self.mlp.c_fc(self.ln_2(x))
+        tp = self.tp if self.tp is not None and holds_piece(self.mlp.c_fc) else None
+        y = self.ln_2(x)
+        h = self.mlp.c_fc(y) if tp is None else tp.column_layer(tp.copy(y), self.mlp.c_fc)
         if self.use_quick_gelu:
             h = quick_gelu(h)
         else:
             h = F.gelu(h, approximate="none" if self.use_exact_gelu else "tanh")
-        return x + self.mlp.c_proj(h)
+        return x + (self.mlp.c_proj(h) if tp is None else tp.row(h, self.mlp.c_proj))
 
 
 class CLIPTextEncoder(nn.Module):

@@ -21,6 +21,13 @@ v come back fp32.
     centres, edge-clamped: torch's align_corners=False equals
     `jax.image.resize` when upsampling) and concatenated as [x, up].
 
+Under tensor parallelism (parallel/tensor_parallel.py) qkv ([q_r | k_r |
+v_r]), encoder_kv ([k_r | v_r]) and mlp_fc are column parallel where they
+hold tp pieces, out_proj and mlp_proj row parallel, and the whole proj_out
+takes the rank's columns of the attention output and sums over the tp
+ranks; the attention runs on the rank's heads, or on every head gathered
+where they do not divide by tp (the base UNet's 9 heads at C 576, tp 2).
+
 The activations run in `compute_dtype` (bf16 over fp32 master weights in
 training, as the JAX GLIDE configs' dtype=bf16 over fp32 params), or in the
 weights' dtype when it is None. Every Linear and conv casts its weight to
@@ -42,6 +49,7 @@ from minddiffusion_tpu_torch.models.layers import (
     timestep_embedding)
 from minddiffusion_tpu_torch.models.unet import ResBlock
 from minddiffusion_tpu_torch.ops.attention import packed_attention
+from minddiffusion_tpu_torch.parallel.tensor_parallel import holds_piece
 from minddiffusion_tpu_torch.utils.flags import flags
 
 GLIDE_BLOCK_Q = 1024   # the q-tile hint GLIDE's attention passes to the route
@@ -68,11 +76,21 @@ class XfBlock(nn.Module):
         self.mlp_fc = Linear(width, 4 * width)
         self.mlp_proj = Linear(4 * width, width)
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = self.qkv(self.ln_1(x)).chunk(3, dim=-1)
-        x = x + self.out_proj(packed_attention(q, k, v, self.heads))
-        h = F.gelu(self.mlp_fc(self.ln_2(x)), approximate="tanh")
-        return x + self.mlp_proj(h)
+        tp, y = self.tp, self.ln_1(x)
+        if tp is not None and holds_piece(self.qkv):
+            q, k, v = tp.column_layer(tp.copy(y), self.qkv, parts=3).chunk(3, dim=-1)
+            x = x + tp.row(tp.attention(q, k, v, self.heads, packed_attention), self.out_proj)
+        else:
+            q, k, v = self.qkv(y).chunk(3, dim=-1)
+            x = x + self.out_proj(packed_attention(q, k, v, self.heads))
+        y = self.ln_2(x)
+        if tp is not None and holds_piece(self.mlp_fc):
+            h = F.gelu(tp.column_layer(tp.copy(y), self.mlp_fc), approximate="tanh")
+            return x + tp.row(h, self.mlp_proj)
+        return x + self.mlp_proj(F.gelu(self.mlp_fc(y), approximate="tanh"))
 
 
 class XfTextEncoder(nn.Module):
@@ -122,17 +140,31 @@ class GlideAttentionBlock(nn.Module):
             self.kv_cache: Optional[dict] = None    # a dict inside layers.hoisted
         self.proj_out = Linear(channels, channels)
 
+    tp = None        # parallel/tensor_parallel.TensorParallel, set by parallel.shard_params
+
     def forward(self, x: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, c = x.shape
-        q, k, v = self.qkv(self.norm(x).reshape(b, h * w, c)).chunk(3, dim=-1)
+        tp = self.tp if self.tp is not None and holds_piece(self.qkv) else None
+
+        def project(layer, t, parts):
+            return layer(t) if tp is None else tp.column_layer(tp.copy(t), layer, parts)
+
+        q, k, v = project(self.qkv, self.norm(x).reshape(b, h * w, c), 3).chunk(3, dim=-1)
         if encoder_out is not None:
-            ek, ev = reuse(self.kv_cache, encoder_out,
-                           lambda: self.encoder_kv(encoder_out.to(x.dtype)).chunk(2, dim=-1))
+            ek, ev = reuse(self.kv_cache, encoder_out, lambda: project(
+                self.encoder_kv, encoder_out.to(x.dtype), 2).chunk(2, dim=-1))
             k, v = torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1)
-        out = packed_attention(q, k, v, self.heads, impl=self.attn_impl,
-                               block_q=GLIDE_BLOCK_Q, min_q=flags().glide_attn_route)
-        return x + self.proj_out(out).reshape(b, h, w, c)
+
+        def attend(q, k, v, heads):
+            return packed_attention(q, k, v, heads, impl=self.attn_impl,
+                                    block_q=GLIDE_BLOCK_Q, min_q=flags().glide_attn_route)
+
+        if tp is None:
+            out = self.proj_out(attend(q, k, v, self.heads))
+        else:
+            out = tp.row(tp.attention(q, k, v, self.heads, attend), self.proj_out)
+        return x + out.reshape(b, h, w, c)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,15 @@ zero, so enabling LoRA changes nothing until B is trained. A and B are cast
 to the input's dtype at use and the delta is added to the base output in
 that dtype, as the JAX package does under dtype=bf16.
 
+Under tp (parallel/tensor_parallel.py) lora_a and lora_b are split where
+the JAX rule splits them, which is where the rule splits their layer
+(parallel/mesh.shard_params refuses a rank that does not divide by tp):
+on a column-parallel projection lora_a holds r / tp of the rank dim and
+lora_b the rank's output features, so (x A) is gathered whole over the tp
+ranks first (`column_delta`); on a row-parallel one lora_a holds the
+rank's input rows and lora_b r / tp of the rank dim, so (x A) is reduced
+whole over the tp ranks and the rank takes its block of it (`row_delta`).
+
 The state-dict helpers work on flat LDM-named state dicts (the names
 io/sd_weights.py produces): an adapter is the pair `<proj>.lora_a`,
 `<proj>.lora_b` beside its base `<proj>.weight`.
@@ -35,6 +44,19 @@ class LoRALinear(Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         delta = x @ self.lora_a.to(x.dtype) @ self.lora_b.to(x.dtype)
         return super().forward(x) + delta * (self.alpha / self.rank)
+
+    def column_delta(self, tp, xc: torch.Tensor) -> torch.Tensor:
+        """The scaled delta of this rank's output features on a
+        column-parallel layer; `xc` the input through `tp.copy`."""
+        t = tp.copy(tp.gather(xc @ self.lora_a.to(xc.dtype)))
+        return (t @ self.lora_b.to(xc.dtype)) * (self.alpha / self.rank)
+
+    def row_delta(self, tp, h: torch.Tensor) -> torch.Tensor:
+        """This rank's fp32 partial of the scaled delta on a row-parallel
+        layer; `h` its block of the input features."""
+        u = tp.reduce(h.float() @ self.lora_a.to(h.dtype).float()).to(h.dtype)
+        return (tp.block(tp.copy(u), -1).float() @ self.lora_b.to(h.dtype).float()) * (
+            self.alpha / self.rank)
 
 
 def is_lora_name(name: str) -> bool:

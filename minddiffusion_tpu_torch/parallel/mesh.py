@@ -12,9 +12,13 @@ over the process group with `torch.distributed.device_mesh`:
   * "fsdp": the params are sharded as well, by FSDP2 `fully_shard` on the
     networks' blocks (`shard_params`); the batch is split over dp x fsdp
     jointly, as JAX's `batch_sharding` does.
-  * "tp": the tensor-parallel rule (`param_spec`, `tp_report`,
-    `assert_tp_effective`) is ported and tested, but no model of the port
-    runs under tp > 1 yet: `shard_params` refuses it.
+  * "tp": tensor parallel. `shard_params` replaces every param whose
+    `param_spec` holds "tp" by this rank's 1/tp of it on the rule's dim
+    (`tp_shard`), and the attention and FF modules compute on their pieces
+    (parallel/tensor_parallel.py): column-parallel projections, attention
+    on whole local heads (or on every head where the heads do not divide by
+    tp), row-parallel products reduced over the tp ranks. Each tp rank of a
+    data rank takes the same rows.
 
 `param_spec` is the JAX rule (`_tp_dim` / `_param_spec`) as a pure function
 of (LDM name, torch shape, mesh shape). Two things differ from the flax
@@ -28,7 +32,11 @@ weight, and FSDP's "largest divisible axis" breaks ties as flax does.
 
 FSDP2 itself always shards dim 0 (padded where it does not divide): the
 same arithmetic on another axis. `param_spec` stays the rule that
-`tp_report` and the tests read.
+`tp_report` and the tests read. A tp piece of a packed projection (GEGLU's
+[x; gate], OpenCLIP's in_proj [q; k; v], GLIDE's qkv [q | k | v] and
+encoder_kv [k | v]) is block r of each part, not the contiguous block r
+that XLA places: the rank's heads' q, k and v, or the x and gate of its
+features. Its size is the rule's.
 
 A node of the port stands for a host of the JAX package and a rank for a
 device: the datasets shard by node (`data_layout`), and each of a node's
@@ -38,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -194,6 +202,48 @@ def assert_tp_effective(params: Mapping[str, torch.Tensor], mesh,
     return rep
 
 
+# Packed projections: the tensors a fused weight holds back to back on its
+# split dim (the rule's dim: the output features of a column-parallel
+# weight and its bias).
+_TP_PARTS = (("in_proj_weight", 3), ("qkv", 3), ("ff.net.0.proj", 2), ("encoder_kv", 2))
+
+
+def tp_parts(name: str) -> int:
+    """How many tensors `name` packs on its tp dim (1: not packed)."""
+    return next((n for frag, n in _TP_PARTS if _has(name, (frag,))), 1)
+
+
+def tp_block(t: torch.Tensor, dim: int, parts: int, index: int, tp: int) -> torch.Tensor:
+    """Block `index` of `tp` of each of the `parts` tensors `t` packs on
+    `dim`, joined: [a_r; b_r; ...]."""
+    n = t.shape[dim]
+    if n % (parts * tp):
+        raise ValueError(f"{parts} parts of {n} do not split into {tp} blocks each")
+    return torch.cat([p.chunk(tp, dim)[index] for p in t.chunk(parts, dim)], dim)
+
+
+def tp_shard(name: str, tensor: torch.Tensor, index: int, tp: int) -> torch.Tensor:
+    """Rank `index`'s piece of `name` on a tp axis of `tp`: its 1/tp on the
+    rule's dim (block `index` of each packed part), or `tensor` itself
+    where the rule does not split it."""
+    spec = param_spec(name, tuple(tensor.shape), {"tp": tp})
+    if "tp" not in spec:
+        return tensor
+    try:
+        return tp_block(tensor, spec.index("tp"), tp_parts(name), index, tp)
+    except ValueError as e:
+        raise ValueError(f"{name}: the rule splits it over tp={tp}, but {e}") from None
+
+
+def tp_unshard(name: str, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The inverse of `tp_shard`: every rank's piece of `name` (in tp rank
+    order) joined back into the whole tensor."""
+    td = tp_dim(name, pieces[0].shape)
+    parts = tp_parts(name)
+    split = [p.chunk(parts, td) for p in pieces]
+    return torch.cat([torch.cat([s[j] for s in split], td) for j in range(parts)], td)
+
+
 # The blocks FSDP2 shards one by one (each is called as a module, so its
 # hooks gather its params): SD's ResBlock / SpatialTransformer, OpenCLIP's
 # ResidualAttentionBlock, GLIDE's ResBlock / GlideAttentionBlock / XfBlock.
@@ -201,21 +251,26 @@ FSDP_UNITS = ("ResBlock", "SpatialTransformer", "ResidualAttentionBlock",
               "GlideAttentionBlock", "XfBlock")
 
 
-def shard_params(modules: Mapping[str, nn.Module], mesh) -> Mapping[str, nn.Module]:
-    """Place the networks on the grid: replicated under fsdp 1; under fsdp
-    > 1 every network that takes a gradient is sharded by FSDP2, block by
-    block and then as a whole, over the fsdp ranks (HSDP, replicated over
-    dp, where dp > 1 too). A network with no trainable param (the VAE)
-    stays replicated. In place; returns `modules`."""
-    named = {f"{k}.{n}": p for k, m in modules.items() for n, p in m.named_parameters()}
+def shard_params(modules: Mapping[str, nn.Module], mesh,
+                 prefixes: Optional[Mapping[str, str]] = None):
+    """Place the networks on the grid, in place. Under tp > 1 every param
+    whose `param_spec` holds "tp" becomes this rank's piece of it
+    (`tp_shard`) and every module with a `tp` attribute computes on the
+    pieces; every other param stays whole. Then, under fsdp > 1, every
+    network that takes a gradient is sharded by FSDP2, block by block and
+    then as a whole, over the dp x fsdp ranks of this rank's tp coordinate
+    (HSDP, replicated over dp, where dp > 1 too). A network with no
+    trainable param (the VAE) is not sharded by FSDP2. `prefixes`: the
+    prefix of each network's param names (default "<key>."), the names
+    the returned record uses. -> the tp record
+    (parallel/tensor_parallel.TensorParallel), None under tp 1."""
+    prefixes = prefixes if prefixes is not None else {k: f"{k}." for k in modules}
+    named = {prefixes[k] + n: p for k, m in modules.items() for n, p in m.named_parameters()}
     assert_tp_effective(named, mesh)
     sizes = mesh_shape(mesh)
-    if sizes["tp"] > 1:
-        raise NotImplementedError(
-            f"tp={sizes['tp']}: tensor parallelism on a model is not ported "
-            "(ROADMAP.md queue 1); the port's grids are dp x fsdp")
+    tp = _place_tp(modules, named, mesh) if sizes["tp"] > 1 else None
     if sizes["fsdp"] == 1:
-        return modules
+        return tp
     from torch.distributed.fsdp import fully_shard
 
     sub = mesh["fsdp"] if sizes["dp"] == 1 else mesh["dp", "fsdp"]
@@ -228,15 +283,58 @@ def shard_params(modules: Mapping[str, nn.Module], mesh) -> Mapping[str, nn.Modu
         for unit in units:
             fully_shard(unit, mesh=sub)
         fully_shard(module, mesh=sub)
-    return modules
+    return tp
+
+
+def _place_tp(modules: Mapping[str, nn.Module], named: Mapping[str, nn.Parameter], mesh):
+    """Every tp param replaced by this rank's piece; the record set on
+    every module that has a `tp` attribute."""
+    from minddiffusion_tpu_torch.parallel.tensor_parallel import TensorParallel
+
+    size = mesh_shape(mesh)["tp"]
+    index = mesh.get_local_rank("tp")
+    pieces = {n: tuple(p.shape) for n, p in named.items()
+              if "tp" in param_spec(n, tuple(p.shape), mesh)}
+    for n in named:                 # a LoRA adapter is split where its layer is
+        if n.endswith((".lora_a", ".lora_b")):
+            base = n.rsplit(".", 1)[0] + ".weight"
+            if (n in pieces) != (base in pieces):
+                raise NotImplementedError(
+                    f"{n}: under tp={size} a LoRA adapter must be split where its layer "
+                    "is (a rank that divides by tp, on a layer the rule splits)")
+    with torch.no_grad():          # a copy: the view would keep the whole tensor alive
+        for n in pieces:
+            named[n].data = tp_shard(n, named[n].data, index, size).clone()
+    tp = TensorParallel(mesh.get_group("tp"), index, size, pieces)
+    for module in modules.values():
+        for m in module.modules():
+            if hasattr(type(m), "tp"):
+                m.tp = tp
+    return tp
+
+
+def data_group(mesh):
+    """The process group of this rank's data ranks: the dp x fsdp ranks of
+    its tp coordinate (None, the whole world, where tp is 1 or there is no
+    grid)."""
+    sizes = mesh_shape(mesh) if mesh is not None else {"tp": 1}
+    if sizes["tp"] == 1:
+        return None
+    if sizes["dp"] == 1:
+        return mesh.get_group("fsdp")
+    if sizes["fsdp"] == 1:
+        return mesh.get_group("dp")
+    return mesh["dp", "fsdp"]._flatten("dp_fsdp").get_group()
 
 
 @dataclasses.dataclass(frozen=True)
 class Rows:
-    """This rank's block of a batch split `count` ways (block `index`)."""
+    """This rank's block of a batch split `count` ways (block `index`) over
+    the ranks of `group` (None: the world)."""
 
     index: int = 0
     count: int = 1
+    group: object = dataclasses.field(default=None, compare=False)
 
     def take(self, x, name: str = "batch"):
         b = x.shape[0]
@@ -248,12 +346,13 @@ class Rows:
 
 def batch_sharding(mesh) -> Rows:
     """This rank's rows of a global batch split over dp x fsdp jointly (the
-    JAX P(("dp", "fsdp"))): block d * fsdp + f of dp * fsdp."""
+    JAX P(("dp", "fsdp"))): block d * fsdp + f of dp * fsdp, over the data
+    group; every tp rank of a data rank takes the same rows."""
     if mesh is None:
         return Rows()
     sizes = mesh_shape(mesh)
     d, f, _ = mesh.get_coordinate()
-    return Rows(d * sizes["fsdp"] + f, sizes["dp"] * sizes["fsdp"])
+    return Rows(d * sizes["fsdp"] + f, sizes["dp"] * sizes["fsdp"], data_group(mesh))
 
 
 def shard_batch(batch: Mapping, mesh) -> Dict:

@@ -240,10 +240,13 @@ class StableDiffusionPipeline:
 
         `mesh` (parallel/mesh.make_mesh; JAX's `mesh=`): one request batch
         split over the data ranks (dp x fsdp; batch_size must divide over
-        them), every rank with the whole weights. Each rank is called with
-        the whole batch, draws the whole x_T from `generator` and keeps its
-        rows, samples and decodes them, and every rank returns the whole
-        batch gathered back, the bytes of the one-process call. (The JAX
+        them), every rank with the whole weights (also on a grid with tp >
+        1, as in JAX: no tp compute in inference; each tp rank of a data
+        rank samples the same rows). Each rank is called with the whole
+        batch, draws the whole x_T from `generator` and keeps its rows,
+        samples and decodes them, and every rank returns the whole batch
+        gathered back over its data ranks, the bytes of the one-process
+        call. (The JAX
         mesh variant switches to the interleaved CFG layout, a TPU-only
         rewrite not ported.)"""
         if sampler not in SAMPLERS:

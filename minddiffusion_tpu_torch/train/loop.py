@@ -12,8 +12,9 @@ step dispatches: over a window it sums to the window's wall time, because
 the host waits for the device at every fetch.
 
 On a process grid the checkpoint is gathered whole first
-(parallel/collectives.full_state: every rank joins, rank 0 writes), so its
-file is the one-process format that every loader of the port reads.
+(parallel/collectives.full_state: every rank joins, rank 0 writes; tp
+pieces joined back), so its file is the one-process format that every
+loader of the port reads.
 
 `ProfilerCallback` records a `torch.profiler` trace (CPU and CUDA
 activities) of steps (start_step, stop_step] and writes its Chrome trace
@@ -142,7 +143,7 @@ class Trainer:
                     sd = state.models.state_dict()
                     tree = self.ckpt_transform(sd) if self.ckpt_transform else sd
                     self.ckpt_manager.save(step, tree if getattr(state, "mesh", None) is None
-                                           else full_state(tree))
+                                           else full_state(tree, getattr(state, "tp", None)))
                 if last:
                     return state
             self._flush(pending)

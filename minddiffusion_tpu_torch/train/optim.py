@@ -25,7 +25,10 @@ applies, as a bare optax chain does.
 Under fsdp the params and their gradients are FSDP2's DTensor shards: the
 fused update steps each rank's shards, and the clip reads the norm of the
 whole gradient (parallel/collectives.global_norm sums the shards' squares
-over their ranks), so every rank clips by the same factor.
+over their ranks), so every rank clips by the same factor. Under tp the
+same: each rank steps its tp pieces and the params whole on every tp rank
+(whose gradients are the same on each), and the norm sums a piece's
+squares over the tp ranks (`tp`, the placement's record).
 
 SD's configuration is the default (betas 0.9 / 0.98, wd 1e-6 on the decay
 set, the trainable mask, the guard). GLIDE's chain,
@@ -89,14 +92,14 @@ class AdamW:
     def __init__(self, params: Dict[str, nn.Parameter], learning_rate: Callable,
                  weight_decay: float = 1e-6, beta1: float = 0.9, beta2: float = 0.98,
                  eps: float = 1e-8, max_grad_norm: float = 1.0,
-                 trainable: Optional[str] = "unet"):
+                 trainable: Optional[str] = "unet", tp=None):
         self.trainable = sorted(params if trainable is None
                                 else trainable_names(params, trainable))
         if not self.trainable:
             raise ValueError(f"no parameter is trainable under {trainable!r}")
         self.params = {n: params[n] for n in self.trainable}
         decay = set(self.params) if trainable is None else decay_names(self.params)
-        self.schedule, self.max_norm = learning_rate, max_grad_norm
+        self.schedule, self.max_norm, self.tp = learning_rate, max_grad_norm, tp
         device = next(iter(self.params.values())).device
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
@@ -117,7 +120,7 @@ class AdamW:
             # the fused update walks a gradient in its param's memory order
             p.grad = g if g.stride() == p.stride() else torch.empty_like(p).copy_(g)
             gs.append(p.grad)
-        g_norm = global_norm(gs)
+        g_norm = global_norm(gs, self.tp, self.trainable)
         torch._foreach_mul_(gs, torch.where(g_norm < self.max_norm, 1.0,
                                             self.max_norm / g_norm))
         self.lr.copy_(self.schedule(self.count))

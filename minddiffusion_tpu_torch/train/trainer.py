@@ -25,8 +25,11 @@ and keeps its rows (`Rows`), so a step on the grid is the one-process step
 on the global batch up to the order of its sums, as the JAX package's
 sharded step is. The gradient is averaged over the data ranks, or sharded
 by FSDP2 under fsdp > 1 (parallel/collectives.gradients); the loss metrics
-are their means over the ranks, and the finite guard, `grad_norm` and the
-clip read the whole gradient.
+are their means over the data ranks, and the finite guard, `grad_norm` and
+the clip read the whole gradient. Under tp > 1 the networks compute on
+their tp pieces (parallel/tensor_parallel.py), every tp rank of a data
+rank takes the same rows and draws, the fused AdamW steps each rank's
+pieces, and `grad_norm` sums a piece's squares over the tp ranks.
 """
 from __future__ import annotations
 
@@ -36,9 +39,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from minddiffusion_tpu_torch.core import distributions, latents
+from minddiffusion_tpu_torch.io.sd_weights import PREFIXES
 from minddiffusion_tpu_torch.parallel.collectives import (global_norm, global_rows,
                                                            gradients, mean_over_ranks)
-from minddiffusion_tpu_torch.parallel.mesh import Rows, batch_sharding, shard_params
+from minddiffusion_tpu_torch.parallel.mesh import (Rows, batch_sharding, data_group,
+                                                   shard_params)
 from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 from minddiffusion_tpu_torch.train.lr_schedules import warmup_then_decay
 from minddiffusion_tpu_torch.train.optim import AdamW, named_parameters
@@ -67,13 +72,15 @@ class TrainConfig:
 class TrainState:
     """The models (their parameters are the train params), the optimizer
     state, `step`, the steps taken so far (a host count: it advances on a
-    non-finite step too, as the JAX step's does), and the process grid
-    (None: one process)."""
+    non-finite step too, as the JAX step's does), the process grid (None:
+    one process) and its tp record (parallel/tensor_parallel.TensorParallel,
+    its pieces by LDM name; None under tp 1)."""
 
     models: SDModels
     optimizer: AdamW
     step: int = 0
     mesh: object = None
+    tp: object = None
 
     @property
     def grad_params(self) -> Dict[str, torch.nn.Parameter]:
@@ -84,18 +91,18 @@ class TrainState:
 
 def create_train_state(models: SDModels, config: TrainConfig, mesh=None) -> TrainState:
     """Turn on grad for the UNet and text encoder, off for the VAE, place
-    the networks on `mesh` (parallel/mesh.shard_params: FSDP2 under fsdp >
-    1), and build the optimizer over the trainable set."""
+    the networks on `mesh` (parallel/mesh.shard_params: tp pieces under tp
+    > 1, FSDP2 under fsdp > 1), and build the optimizer over the trainable
+    set."""
     for kind, module in models.modules().items():
         module.requires_grad_(kind != "vae")
-    if mesh is not None:
-        shard_params(models.modules(), mesh)
+    tp = shard_params(models.modules(), mesh, PREFIXES) if mesh is not None else None
     lr = warmup_then_decay(config.start_lr, config.end_lr, config.warmup_steps,
                            config.decay_steps, use_cosine=config.use_cosine)
     opt = AdamW(named_parameters(models.modules()), lr, weight_decay=config.weight_decay,
                 beta1=config.beta1, beta2=config.beta2, max_grad_norm=config.max_grad_norm,
-                trainable=config.trainable)
-    return TrainState(models=models, optimizer=opt, mesh=mesh)
+                trainable=config.trainable, tp=tp)
+    return TrainState(models=models, optimizer=opt, mesh=mesh, tp=tp)
 
 
 def diffusion_loss(models: SDModels, images: Optional[torch.Tensor], tokens: torch.Tensor,
@@ -173,7 +180,8 @@ def make_loss_and_grads(config: TrainConfig, dreambooth: bool = False) -> Callab
         grads = gradients(loss, lambda: state.grad_params, set(state.optimizer.trainable),
                           state.mesh)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return (metrics if state.mesh is None else mean_over_ranks(metrics)), grads
+        return (metrics if state.mesh is None else
+                mean_over_ranks(metrics, data_group(state.mesh))), grads
 
     return fn
 
@@ -193,7 +201,7 @@ def make_train_step(config: TrainConfig, dreambooth: bool = False) -> Callable:
              draws=None) -> Dict[str, torch.Tensor]:
         gen = step_generator(seed, state.step, state.models.device)
         metrics, grads = loss_and_grads(state, batch, gen, draws)
-        g_norm = global_norm(list(grads.values()))
+        g_norm = global_norm(list(grads.values()), state.tp, list(grads))
         finite = torch.isfinite(g_norm)
         metrics["grads_finite"] = finite.to(torch.float32)
         metrics["grad_norm"] = torch.where(finite, g_norm, 0.0)

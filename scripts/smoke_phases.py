@@ -1,8 +1,8 @@
 """Run phase 6 (K4 at its sites), phase 7 (txt2img 768x1024), phase 16 (K9
 in both modes), phase 17 (K6 in both memory orders), phase 18 (K5 at
 ds1, ds2 and ds4, and on the block inputs of an SD2 UNet eval) or phase 31
-(the SD2 finetune step on the process grid: two ranks on the card at dp 2
-and fsdp 2, and the train CLI under torchrun) of chip_smoke.py alone, from
+(the SD2 finetune step on the process grid: two ranks on the card at dp 2,
+fsdp 2 and tp 2, and the train CLI under torchrun) of chip_smoke.py alone, from
 this checkout or another one.
 
     python3 scripts/smoke_phases.py [--root DIR] 6 7 16 17 18 31

@@ -1042,11 +1042,11 @@ def test_cfg_fold_on_the_kernel_path_matches_the_plain_path(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid", [(2, 1), (1, 2)], ids=["dp2", "fsdp2"])
+@pytest.mark.parametrize("grid", [(2, 1), (1, 2), (1, 1, 2)], ids=["dp2", "fsdp2", "tp2"])
 def test_sd_step_on_two_ranks_of_one_card(cuda, tmp_path, grid):
     """The grid's train step on one card (two ranks, gloo over CUDA tensors:
-    NCCL takes one rank a GPU): a tiny SD2 at bf16 compute, 2 steps at dp 2
-    or fsdp 2 against one process on the same global batch and draws. The
+    NCCL takes one rank a GPU): a tiny SD2 at bf16 compute, 2 steps at dp 2,
+    fsdp 2 or tp 2 against one process on the same global batch and draws. The
     metrics within bf16's 1e-2, the checkpoint (gathered whole by rank 0)
     in the one-process format, its frozen VAE and text encoder bitwise."""
     import os
@@ -1096,3 +1096,38 @@ def test_sd_step_on_two_ranks_of_one_card(cuda, tmp_path, grid):
         assert got["ckpt"][name].shape == ref.shape and got["ckpt"][name].dtype == ref.dtype
         if not name.startswith("model.diffusion_model."):
             assert torch.equal(got["ckpt"][name], ref), name
+
+
+@pytest.mark.cuda
+def test_tp_attention_on_two_ranks_of_one_card(cuda):
+    """SD CrossAttention at tp 2 on one card (two ranks, gloo over CUDA
+    tensors), bf16: at (2, 1024, 10 x 64) K1 runs on each rank's 5 heads, at
+    (2, 1024, 5 x 64), where tp 2 does not divide the heads, on all 5 on
+    every rank. The output, x's gradient and every param's gradient (the
+    tp pieces joined) within 1e-2 relative L2 of one process's."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import tempfile
+
+    import torch_dist as td
+
+    sites = [(640, 10, 1024), (320, 5, 1024)]
+    one = td.tp_attention(sites, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = td.start_ranks([(td.tp_attention, (sites, (1, 1, 2)))], 2, tmp,
+                               timeout=300).join()
+    for site in sites:
+        ref = one[site]
+        assert ref["k1"] == {(2, 1024, site[1]): 1}, ref["k1"]
+        local = site[1] // 2 if site[1] % 2 == 0 else site[1]
+        for r in ranks:
+            got = r[0][site]
+            assert got["k1"] == {(2, 1024, local): 1}, (site, got["k1"])
+            pairs = [("y", got["y"], ref["y"]), ("dx", got["dx"], ref["dx"])]
+            pairs += [(n, got["grads"][n], g) for n, g in ref["grads"].items()]
+            for name, a, b in pairs:
+                assert a.shape == b.shape, (site, name)
+                rel = ((a - b).norm() / b.norm()).item()
+                assert rel <= 1e-2, (site, name, rel)

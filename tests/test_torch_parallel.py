@@ -11,22 +11,33 @@ port's name (io/sd_weights and io/glide_weights translators) and torch
 layout (a Dense kernel transposed, a conv kernel HWIO -> OIHW), equals the
 port's spec of that name and shape.
 
+The tp pieces (parallel/mesh.tp_shard) are pure functions too: on the
+tiny SD UNet with LoRA, CLIP and GLIDE models at tp 2 and 4 every piece has
+the rule's size, a packed projection's piece is block r of each part, and
+tp_unshard joins the pieces back; shard_params places them (on a stand-in
+mesh, no process group) and refuses a LoRA rank that tp does not divide.
+
 The multi-rank cases run in one session of two spawned processes in a gloo
-group (tests/torch_dist.py: a FileStore rendezvous, one thread a rank, a
-deadline that fails instead of hanging), which the JAX references run
-beside. The SD step at dp = 2 and at fsdp = 2 takes test_torch_train.py's
-3 finetune steps on its tiny SD2 (model channels 64, warmup 1), from
-latents, with the JAX step's own draws for the global batch, and is
-held against the JAX step's jitted pieces at that file's tolerances (loss
-and grad_norm 1e-5 relative, params 1e-3 * lr * steps); its checkpoints,
-gathered whole by rank 0, against the one-process port's. The GLIDE step at
-dp = 2 is held against the port's one-process step: the metrics within
-1e-5 relative, the params within 1e-3 * lr where the one-process gradient
-is resolved (test_torch_glide_train.py's rule: zero, or above 1e-3 of its
-tensor's largest), and within one AdamW step elsewhere (rounding noise on
-a gradient that is 0 in exact arithmetic moves a param by up to lr). txt2img
-over 2 ranks is bytewise the one-process call and within 1 uint8 of the
-JAX single-device `build_txt2img` on the same explicit x_T.
+group and one of four (tests/torch_dist.py: a FileStore rendezvous, one
+thread a rank, a deadline that fails instead of hanging), which the JAX
+references run beside. The SD step at dp 2, fsdp 2, tp 2 and fsdp 2 x tp 2
+(grids (dp, fsdp, tp)) takes test_torch_train.py's 3 finetune steps on a
+tiny SD2 (model channels 48, 16 channels a head: 3 heads at ds1, which tp
+2 does not divide, 6 at ds2; warmup 1), from latents, with the JAX step's
+own draws for the global batch, and is held against the JAX step's jitted
+pieces at that file's tolerances (loss and grad_norm 1e-5 relative, params
+1e-3 * lr * steps); its checkpoints, gathered whole by rank 0, against the
+one-process port's. The GLIDE step at dp 2 and at tp 2 (a tiny UNet with 3
+heads at ds1 and 6 at ds2) and a LoRA step at tp 2 are held against the
+port's one-process steps: the metrics within 1e-5 relative, the params
+within 1e-3 * lr where the one-process gradient is resolved
+(test_torch_glide_train.py's rule: zero, or above 1e-3 of its tensor's
+largest), and within one AdamW step elsewhere (rounding noise on a
+gradient that is 0 in exact arithmetic moves a param by up to lr). Under tp
+every param whole on both tp ranks has the same gradient on each, bitwise.
+txt2img over 2 ranks and over dp 2 x tp 2 is bytewise the one-process call
+and within 1 uint8 of the JAX single-device `build_txt2img` on the same
+explicit x_T.
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ from minddiffusion_tpu.data.glide_dataset import GlideTextImageDataset as JaxGli
 from minddiffusion_tpu.models import glide as jax_glide
 from minddiffusion_tpu.models.clip import CLIPTextConfig as JaxCLIPConfig
 from minddiffusion_tpu.models.unet import UNetConfig as JaxUNetConfig
+from minddiffusion_tpu.models.vae import VAEConfig as JaxVAEConfig
 from minddiffusion_tpu.parallel import mesh as jax_mesh
 from minddiffusion_tpu.pipelines.stable_diffusion import SDModels as JaxSDModels
 from minddiffusion_tpu.pipelines.stable_diffusion import StableDiffusionPipeline as JaxPipe
@@ -62,9 +74,11 @@ from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager, load_check
 from minddiffusion_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
 from minddiffusion_tpu_torch.models.glide import GlideUNetConfig, Text2ImUNet, XfConfig
 from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
+from minddiffusion_tpu_torch.models.vae import VAEConfig
 from minddiffusion_tpu_torch.parallel import mesh as port_mesh
 from minddiffusion_tpu_torch.parallel.collectives import gradients
 from minddiffusion_tpu_torch.parallel.mesh import MeshConfig, Rows
+from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
 
 from test_torch_train_data import write_images
 
@@ -77,6 +91,13 @@ GLIDE_UNET = dict(in_channels=3, model_channels=32, out_channels=6, num_res_bloc
                   attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=16)
 GLIDE_XF = dict(width=32, layers=1, heads=2, text_ctx=8, n_vocab=64)
 MESHES = [(4, 2, 1), (2, 2, 2), (1, 1, 2)]
+# the grid steps' tiny SD2 UNet (test_torch_train.py's at model channels 48,
+# 16 channels a head): 3 heads at ds1, which tp 2 does not divide (every
+# head on every tp rank), 6 at ds2 (3 a tp rank)
+SD_GRID_UNET = dict(tt.unet_kw("sd2", False), model_channels=48, num_head_channels=16)
+# the grid GLIDE steps' UNet: 3 heads at ds1 (C 48), 6 at ds2 and the middle
+GLIDE_GRID_UNET = dict(in_channels=3, model_channels=48, num_res_blocks=1,
+                       attention_resolutions=(1, 2), channel_mult=(1, 2), num_head_channels=16)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -214,6 +235,103 @@ def test_tp_with_renamed_modules_raises(trees):
     assert port_mesh.assert_tp_effective(broken, {"dp": 1, "fsdp": 2, "tp": 1}) is None
 
 
+# ---- tp pieces ----------------------------------------------------------------
+
+def _tp_models():
+    """{kind: {name: meta param}} of the tiny SD UNet with LoRA, CLIP and
+    GLIDE models."""
+    with torch.device("meta"):
+        return {"sd_lora": dict(UNetModel(UNetConfig(
+                    use_linear_in_transformer=True, enable_lora=True, **SD_UNET))
+                    .named_parameters()),
+                "clip": dict(CLIPTextEncoder(CLIPTextConfig(**SD_TEXT)).named_parameters()),
+                "glide": dict(Text2ImUNet(GlideUNetConfig(**GLIDE_UNET),
+                                          XfConfig(**GLIDE_XF)).named_parameters())}
+
+
+PACKED = {"ff.net.0.proj.weight": 2, "in_proj_weight": 3, "qkv.weight": 3,
+          "encoder_kv.weight": 2}
+
+
+@pytest.mark.parametrize("tp_size", [2, 4])
+@pytest.mark.parametrize("kind", ["sd_lora", "clip", "glide"])
+def test_tp_shard_round_trips(kind, tp_size):
+    """Every param: the pieces have the rule's size (1/tp on its tp dim,
+    whole elsewhere), a packed projection's piece r is block r of each
+    part, and tp_unshard joins the pieces back into the tensor."""
+    gen = torch.Generator().manual_seed(tp_size)
+    params = _tp_models()[kind]
+    seen = set()
+    for name, p in params.items():
+        x = torch.randn(p.shape, generator=gen)
+        spec = port_mesh.param_spec(name, tuple(p.shape), {"tp": tp_size})
+        pieces = [port_mesh.tp_shard(name, x, i, tp_size) for i in range(tp_size)]
+        if "tp" not in spec:
+            assert all(q is x for q in pieces), name
+            continue
+        d = spec.index("tp")
+        want = tuple(n // tp_size if i == d else n for i, n in enumerate(p.shape))
+        assert all(tuple(q.shape) == want for q in pieces), (name, want)
+        parts = next((n for frag, n in PACKED.items() if name.endswith(frag)), 1)
+        assert port_mesh.tp_parts(name) == parts, name
+        seen.add(parts)
+        for i, q in enumerate(pieces):
+            blocks = [part.chunk(tp_size, d)[i] for part in x.chunk(parts, d)]
+            assert torch.equal(q, torch.cat(blocks, d)), (name, i)
+        assert torch.equal(port_mesh.tp_unshard(name, pieces), x), name
+    assert seen == {"sd_lora": {1, 2}, "clip": {1, 3}, "glide": {1, 2, 3}}[kind]
+
+
+class _StandInMesh:
+    """The DeviceMesh calls shard_params makes, for one rank of a (1, 1, tp)
+    grid without a process group."""
+
+    mesh_dim_names = port_mesh.AXES
+
+    def __init__(self, tp: int, index: int):
+        self.shape, self.index = (1, 1, tp), index
+
+    def get_local_rank(self, axis):
+        return self.index
+
+    def get_group(self, axis):
+        return None
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_shard_params_places_the_tp_pieces(index):
+    """Each rank holds its piece of exactly the params whose param_spec
+    holds "tp" and every other param whole; each module with a `tp`
+    attribute gets the record; tp_report reads the whole shapes."""
+    gen = torch.Generator().manual_seed(0)
+    unet = UNetModel(UNetConfig(use_linear_in_transformer=True, enable_lora=True, **SD_UNET))
+    text = CLIPTextEncoder(CLIPTextConfig(**SD_TEXT))
+    for p in [*unet.parameters(), *text.parameters()]:
+        with torch.no_grad():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    whole = {f"{k}.{n}": p.detach().clone() for k, m in (("unet", unet), ("text", text))
+             for n, p in m.named_parameters()}
+    rep = port_mesh.tp_report(whole, {"tp": 2})
+    tp = port_mesh.shard_params({"unet": unet, "text": text}, _StandInMesh(2, index))
+    assert tp.index == index and tp.size == 2 and set(tp.pieces) == set(rep["names"])
+    for k, m in (("unet", unet), ("text", text)):
+        for n, p in m.named_parameters():
+            ref = whole[f"{k}.{n}"]
+            assert torch.equal(p.detach(), port_mesh.tp_shard(f"{k}.{n}", ref, index, 2)), n
+            assert (p.shape != ref.shape) == (f"{k}.{n}" in tp.pieces), n
+    holders = [m for m in [*unet.modules(), *text.modules()] if hasattr(type(m), "tp")]
+    assert holders and all(m.tp is tp for m in holders)
+    assert port_mesh.shard_params({"unet": UNetModel(UNetConfig(**SD_UNET))},
+                                  _StandInMesh(1, 0)) is None
+
+
+def test_tp_refuses_a_lora_rank_it_does_not_divide():
+    unet = UNetModel(UNetConfig(use_linear_in_transformer=True, enable_lora=True,
+                                lora_rank=3, **SD_UNET))
+    with pytest.raises(NotImplementedError, match="LoRA adapter must be split"):
+        port_mesh.shard_params({"unet": unet}, _StandInMesh(2, 0))
+
+
 # ---- data: node shards and rank rows ------------------------------------------
 
 def tokenize(texts):
@@ -301,12 +419,29 @@ def test_a_batch_that_does_not_divide_is_refused():
 
 # ---- the grid: two ranks --------------------------------------------------------
 
+def _sd_build(ukw: dict):
+    """test_torch_train.build's SD2 pair (JAX models, seeded params, the port's
+    fp32 models carrying them) at the UNet config `ukw`."""
+    jm = JaxSDModels.create(
+        family="sd2", dtype=jnp.float32, unet_config=JaxUNetConfig(**ukw),
+        vae_config=JaxVAEConfig(**tp.VAE_KW),
+        text_config=JaxCLIPConfig(use_quick_gelu=False, **tp.CLIP_KW))
+    params = tp.jax_params(jm, 0, size=tt.SIZE)
+    pm = SDModels.create(
+        family="sd2", dtype=torch.float32, device="cpu", param_dtype=torch.float32,
+        unet_config=UNetConfig(**ukw), vae_config=VAEConfig(**tp.VAE_KW),
+        text_config=CLIPTextConfig(use_quick_gelu=False, **tp.CLIP_KW))
+    pm.load_state_dict(sd_weights.state_dict_from_jax(params, jm.unet.config))
+    return jm, params, pm
+
+
 def _sd_setup(tmp):
-    """tests/test_torch_train.py's finetune case (SD2-tiny, model channels 64,
+    """tests/test_torch_train.py's finetune case (SD2-tiny at SD_GRID_UNET,
     CFG dropout 0.5, warmup 1) on pre-encoded latents (the VAE is frozen;
     without it in the graph XLA compiles the JAX step in a fraction of the
-    time) as files for the ranks, and the JAX step."""
-    jm, params, pm = tt.build("sd2", False)
+    time) as files for the ranks, and the JAX step; the LoRA config and
+    weights (random lora_b) of the LoRA step."""
+    jm, params, pm = _sd_build(SD_GRID_UNET)
     jcfg, pcfg = tt.configs("unet", 0.5)
     rng = np.random.default_rng(1)
     b = {"latent": rng.standard_normal((tt.BATCH, tt.SIZE // 8, tt.SIZE // 8, 4)).astype(
@@ -314,15 +449,24 @@ def _sd_setup(tmp):
          "tokens": rng.integers(0, 21128, (tt.BATCH, 77)).astype(np.int32)}
     rng = jax.random.PRNGKey(0)
     draws = [tt.jax_draws(rng, i, 0.5, False) for i in range(STEPS)]
-    torch.save({k: v.clone() for k, v in pm.state_dict().items()}, f"{tmp}/sd_w.pt")
+    weights = {k: v.clone() for k, v in pm.state_dict().items()}
+    torch.save(weights, f"{tmp}/sd_w.pt")
     torch.save({"batch": {k: torch.from_numpy(v) for k, v in b.items()}, "draws": draws},
                f"{tmp}/sd_d.pt")
     nan = [dict(draws[0], noise=torch.full_like(draws[0]["noise"], float("nan")))]
     torch.save({"batch": {k: torch.from_numpy(v) for k, v in b.items()}, "draws": nan},
                f"{tmp}/sd_nan.pt")
-    cfg = dict(family="sd2", unet=tt.unet_kw("sd2", False), vae=tp.VAE_KW,
+    cfg = dict(family="sd2", unet=SD_GRID_UNET, vae=tp.VAE_KW,
                text=dict(tp.CLIP_KW, use_quick_gelu=False), param_dtype=torch.float32,
                train={f: getattr(pcfg, f) for f in pcfg.__dataclass_fields__})
+    lora_cfg = dict(cfg, unet=dict(SD_GRID_UNET, enable_lora=True),
+                    train=dict(cfg["train"], trainable="lora", cond_dropout=0.0))
+    with torch.device("meta"):
+        adapters = {sd_weights.PREFIXES["unet"] + n: p for n, p in UNetModel(
+            UNetConfig(**lora_cfg["unet"])).named_parameters() if "lora_" in n}
+    gen = torch.Generator().manual_seed(4)
+    torch.save(dict(weights, **{n: torch.randn(p.shape, generator=gen) * 0.1
+                                for n, p in adapters.items()}), f"{tmp}/lora_w.pt")
 
     def jax_reference():
         jstate = jax_trainer.create_train_state(jm, params, jcfg)
@@ -335,11 +479,11 @@ def _sd_setup(tmp):
         jparams = jax.tree.map(np.asarray, jax.device_get(jstate.params))
         return jmetrics, sd_weights.state_dict_from_jax(jparams, jm.unet.config)
 
-    return cfg, jax_reference
+    return cfg, lora_cfg, jax_reference
 
 
 def _glide_setup(tmp):
-    model = glide_train.build_model(False, GlideUNetConfig(in_channels=3, **tg.UNET_KW),
+    model = glide_train.build_model(False, GlideUNetConfig(**GLIDE_GRID_UNET),
                                     XfConfig(**tg.XF_KW), torch.device("cpu"),
                                     torch.float32, 21)
     torch.save(dict(model.state_dict()), f"{tmp}/g_w.pt")
@@ -348,7 +492,7 @@ def _glide_setup(tmp):
         b["image"].shape).astype(np.float32))
     torch.save({"batch": {k: torch.from_numpy(v) for k, v in b.items()}, "noise": noise},
                f"{tmp}/g_d.pt")
-    return dict(super_res=False, unet=dict(in_channels=3, **tg.UNET_KW), xf=tg.XF_KW, lr=LR)
+    return dict(super_res=False, unet=GLIDE_GRID_UNET, xf=tg.XF_KW, lr=LR)
 
 
 def _txt2img_setup(tmp):
@@ -398,45 +542,60 @@ def _cli_setup(tmp):
     return assets, sd_argv, glide_argv
 
 
+TWO_RANKS = ("dp", "fsdp", "nan", "glide", "txt2img", "sd_cli", "glide_cli", "replicated",
+             "tp", "tp_nan", "glide_tp", "lora_tp")
+FOUR_RANKS = ("fsdp_tp", "txt2img_tp")
+
+
 @pytest.fixture(scope="module")
 def grid(tmp_path_factory):
-    """Every two-rank job in one session; while it runs, what each is held
+    """Every two-rank job in one session and every four-rank job in
+    another, both started first; while they run, what each is held
     against: the JAX references (the SD step's compile on a thread of its
     own) and the one-process port runs."""
     tmp = str(tmp_path_factory.mktemp("grid"))
-    sd_cfg, sd_jax = _sd_setup(tmp)
+    sd_cfg, lora_cfg, sd_jax = _sd_setup(tmp)
     with ThreadPoolExecutor(1) as pool:
         jax_sd = pool.submit(sd_jax)
         g_cfg = _glide_setup(tmp)
         t_cfg, t_jax = _txt2img_setup(tmp)
         assets, sd_argv, glide_argv = _cli_setup(tmp)
         sd = (f"{tmp}/sd_w.pt", f"{tmp}/sd_d.pt")
-        jobs = [(td.sd_train, (sd_cfg, *sd, (2, 1), f"{tmp}/ck_dp")),
-                (td.sd_train, (sd_cfg, *sd, (1, 2), f"{tmp}/ck_fsdp")),
-            (td.sd_train, (sd_cfg, sd[0], f"{tmp}/sd_nan.pt", (1, 2), f"{tmp}/ck_nan")),
-                (td.glide_train, (g_cfg, f"{tmp}/g_w.pt", f"{tmp}/g_d.pt", (2, 1))),
-                (td.txt2img, (t_cfg, f"{tmp}/t_w.pt", f"{tmp}/t_d.pt", (2, 1))),
+        lora = (f"{tmp}/lora_w.pt", f"{tmp}/sd_d.pt")
+        glide = (f"{tmp}/g_w.pt", f"{tmp}/g_d.pt")
+        t2i = (f"{tmp}/t_w.pt", f"{tmp}/t_d.pt")
+        jobs = [(td.sd_train, (sd_cfg, *sd, (2, 1, 1), f"{tmp}/ck_dp")),
+                (td.sd_train, (sd_cfg, *sd, (1, 2, 1), f"{tmp}/ck_fsdp")),
+            (td.sd_train, (sd_cfg, sd[0], f"{tmp}/sd_nan.pt", (1, 2, 1), f"{tmp}/ck_nan")),
+                (td.glide_train, (g_cfg, *glide, (2, 1, 1))),
+                (td.txt2img, (t_cfg, *t2i, (2, 1, 1))),
                 (td.run_cli, ("minddiffusion_tpu_torch.cli.train", sd_argv, assets)),
                 (td.run_cli, ("minddiffusion_tpu_torch.cli.glide_train", glide_argv)),
-            (td.replicated, ())]
+                (td.replicated, ()),
+                (td.sd_train, (sd_cfg, *sd, (1, 1, 2), f"{tmp}/ck_tp")),
+            (td.sd_train, (sd_cfg, sd[0], f"{tmp}/sd_nan.pt", (1, 1, 2), f"{tmp}/ck_tp_nan")),
+                (td.glide_train, (g_cfg, *glide, (1, 1, 2))),
+                (td.sd_train, (lora_cfg, *lora, (1, 1, 2), f"{tmp}/ck_lora_tp"))]
         session = td.start_ranks(jobs, 2, tmp, timeout=400)
+        four = td.start_ranks([(td.sd_train, (sd_cfg, *sd, (1, 2, 2), f"{tmp}/ck_fsdp_tp")),
+                               (td.txt2img, (t_cfg, *t2i, (2, 1, 2)))], 4, tmp, timeout=400)
         out = dict(
             tmp=tmp, t_jax=t_jax(),
             one=td.sd_train(sd_cfg, *sd, None, f"{tmp}/ck_one"),
-            glide_one=td.glide_train(g_cfg, f"{tmp}/g_w.pt", f"{tmp}/g_d.pt", None),
-            txt2img_one=td.txt2img(t_cfg, f"{tmp}/t_w.pt", f"{tmp}/t_d.pt", None))
+            lora_one=td.sd_train(lora_cfg, *lora, None, f"{tmp}/ck_lora_one"),
+            glide_one=td.glide_train(g_cfg, *glide, None),
+            txt2img_one=td.txt2img(t_cfg, *t2i, None))
         out["jmetrics"], out["jparams"] = jax_sd.result()
-    ranks = session.join()
-    out.update({k: [r[i] for r in ranks] for i, k in
-                enumerate(("dp", "fsdp", "nan", "glide", "txt2img", "sd_cli", "glide_cli",
-                           "replicated"))})
+    for names, ranks in ((TWO_RANKS, session.join()), (FOUR_RANKS, four.join())):
+        out.update({k: [r[i] for r in ranks] for i, k in enumerate(names)})
     return out
 
 
-@pytest.mark.parametrize("mode", ["dp", "fsdp"])
+@pytest.mark.parametrize("mode", ["dp", "fsdp", "tp", "fsdp_tp"])
 def test_sd_step_on_the_grid_matches_jax(grid, mode):
     ranks = grid[mode]
-    assert ranks[1]["ckpt"] is None and ranks[0]["saved"] == list(range(1, STEPS + 1))
+    assert all(r["ckpt"] is None for r in ranks[1:])
+    assert ranks[0]["saved"] == list(range(1, STEPS + 1))
     for r in ranks:
         assert len(r["metrics"]) == STEPS
         for got, ref in zip(r["metrics"], grid["jmetrics"]):
@@ -465,9 +624,9 @@ def _hold_params(got, ref, resolved):
                                    msg=lambda s: f"{name}: {s}")
 
 
-def test_fsdp_checkpoint_equals_the_one_process_checkpoint(grid):
-    got, ref = grid["fsdp"][0]["ckpt"], grid["one"]["ckpt"]
-    assert grid["one"]["saved"] == grid["fsdp"][0]["saved"] == list(range(1, STEPS + 1))
+def test_fsdp_checkpoint_equals_the_one_process_checkpoint(grid, mode="fsdp"):
+    got, ref = grid[mode][0]["ckpt"], grid["one"]["ckpt"]
+    assert grid["one"]["saved"] == grid[mode][0]["saved"] == list(range(1, STEPS + 1))
     assert list(got) == list(ref)
     for name, r in ref.items():
         g = got[name]
@@ -477,15 +636,33 @@ def test_fsdp_checkpoint_equals_the_one_process_checkpoint(grid):
     _hold_params(got, ref, grid["one"]["resolved"])
 
 
+@pytest.mark.parametrize("mode", ["tp", "fsdp_tp"])
+def test_tp_checkpoint_equals_the_one_process_checkpoint(grid, mode):
+    """Rank 0's checkpoint of a tp grid (the tp pieces, and FSDP2's shards
+    inside them, joined back): the one-process file's names in its order,
+    shapes, dtypes, the frozen tensors bitwise."""
+    test_fsdp_checkpoint_equals_the_one_process_checkpoint(grid, mode)
+
+
 def test_a_nonfinite_fsdp_step_moves_nothing(grid):
     """The finite guard on sharded params: a NaN gradient (NaN noise) is
     seen by every rank through the whole gradient's norm, and the fused
     AdamW's found_inf leaves every DTensor shard as it was."""
-    for r in grid["nan"]:
+    _hold_nan_step(grid, "nan")
+
+
+def test_a_nonfinite_tp_step_moves_nothing(grid):
+    """The same at tp 2: the norm of the whole gradient, a piece's squares
+    summed over the tp ranks, is NaN on both, and no piece moves."""
+    _hold_nan_step(grid, "tp_nan")
+
+
+def _hold_nan_step(grid, mode):
+    for r in grid[mode]:
         (m,) = r["metrics"]
         assert m["grads_finite"] == 0.0 and m["grad_norm"] == 0.0
     before = torch.load(os.path.join(grid["tmp"], "sd_w.pt"), weights_only=True)
-    after = grid["nan"][0]["ckpt"]
+    after = grid[mode][0]["ckpt"]
     assert after.keys() == before.keys()
     assert all(torch.equal(after[k], before[k]) for k in before)
 
@@ -503,14 +680,22 @@ def test_no_gradient_for_a_trainable_param_raises_on_a_grid():
 
 
 def test_glide_step_at_dp2_matches_the_one_process_step(grid):
-    one, ranks = grid["glide_one"], grid["glide"]
-    assert ranks[1].keys() == {"metrics"}
+    _hold_glide_step(grid, "glide")
+    assert grid["glide"][1].keys() == {"metrics"}
+
+
+def test_glide_step_at_tp2_matches_the_one_process_step(grid):
+    _hold_glide_step(grid, "glide_tp")
+
+
+def _hold_glide_step(grid, mode):
+    one, ranks = grid["glide_one"], grid[mode]
     for r in ranks:
         for k in ("loss", "mse", "vlb", "grad_norm"):
             np.testing.assert_allclose(r["metrics"][k], one["metrics"][k], rtol=1e-5,
                                        err_msg=k)
     for tree in ("params", "ema"):
-        assert ranks[0][tree].keys() == one[tree].keys()
+        assert list(ranks[0][tree]) == list(one[tree])
         for n, ref in one[tree].items():
             g = one["grads"][n]
             resolved = (g.abs() > 1e-3 * g.abs().max()) | (g == 0)
@@ -519,10 +704,49 @@ def test_glide_step_at_dp2_matches_the_one_process_step(grid):
                 # so their exact gradient is 0 and each run returns rounding noise
                 resolved[tg.XF_KW["width"]:2 * tg.XF_KW["width"]] = False
             got = ranks[0][tree][n]
+            assert got.shape == ref.shape and got.dtype == ref.dtype, (tree, n)
             torch.testing.assert_close(got[resolved], ref[resolved], atol=1e-3 * LR, rtol=0,
                                        msg=lambda s: f"{tree} {n}: {s}")
             torch.testing.assert_close(got, ref, atol=LR, rtol=0,
                                        msg=lambda s: f"{tree} {n}: {s}")
+
+
+def test_lora_step_at_tp2_matches_the_one_process_step(grid):
+    """3 LoRA steps (SD2-tiny at SD_GRID_UNET, rank 4, random lora_b) at tp
+    2: lora_a / lora_b split where the rule splits them, (x A) gathered
+    or reduced whole over the tp ranks."""
+    one, ranks = grid["lora_one"], grid["lora_tp"]
+    for r in ranks:
+        for got, ref in zip(r["metrics"], one["metrics"]):
+            for k in ("loss", "grad_norm", "mse_t_mean"):
+                np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
+    got, ref = ranks[0]["ckpt"], one["ckpt"]
+    before = torch.load(os.path.join(grid["tmp"], "lora_w.pt"), weights_only=True)
+    assert list(got) == list(ref) and set(got) == set(before)
+    for n, b in before.items():     # the adapters moved, nothing else
+        assert torch.equal(got[n], b) == ("lora_" not in n), n
+    _hold_params(got, ref, one["resolved"])
+
+
+@pytest.mark.parametrize("mode", ["tp", "glide_tp", "lora_tp"])
+def test_replicated_gradients_are_equal_on_the_tp_ranks(grid, mode):
+    """Every param whole on both tp ranks ends the backward with the same
+    gradient on each (bitwise), so the replicas stay equal; the pieces
+    are 1/tp of the params whose param_spec holds "tp"."""
+    (a, b) = (r["grads"] for r in grid[mode])
+    assert a.keys() == b.keys() and len(a) > 0
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    if "shapes" in grid[mode][0]:
+        shapes = grid[mode][0]["shapes"]
+        ref = grid["one"]["ckpt"] if mode == "tp" else grid["lora_one"]["ckpt"]
+        split = 0
+        for n, shape in shapes.items():
+            spec = port_mesh.param_spec(n, tuple(ref[n].shape), {"tp": 2})
+            want = tuple(s // 2 if p == "tp" else s for s, p in zip(ref[n].shape, spec))
+            assert shape == want, n
+            split += "tp" in spec
+        assert split == len(shapes) - len(a)
 
 
 def test_txt2img_over_two_ranks(grid):
@@ -531,6 +755,14 @@ def test_txt2img_over_two_ranks(grid):
     for r in grid["txt2img"]:
         assert torch.equal(r, one)
     assert np.abs(one.numpy().astype(np.int32) - grid["t_jax"].astype(np.int32)).max() <= 1
+
+
+def test_txt2img_over_a_dp_tp_grid(grid):
+    """build_txt2img(mesh=) at dp 2 x tp 2: the params stay whole, each tp
+    rank of a data rank samples the same rows, the gather runs over the
+    data ranks; every rank returns the one-process bytes."""
+    for r in grid["txt2img_tp"]:
+        assert torch.equal(r, grid["txt2img_one"])
 
 
 def test_replicate_gives_every_rank_rank_0s_tensors(grid):

@@ -121,14 +121,21 @@ def replicated() -> list:
     return replicate({"x": torch.full((3,), float(rank()))})["x"].tolist()
 
 
+def _tp_grads(grads: dict, tp) -> dict:
+    """The gradients of the params whole on every tp rank (no tp piece)."""
+    return {n: g.detach().clone() for n, g in grads.items() if n not in tp.pieces}
+
+
 def sd_train(cfg: dict, weights: str, data: str, grid, ckpt_dir: str) -> dict:
     """SD train steps through `Trainer` (the batch in `data` each step, with
-    that step's global draws) on the grid `grid` ((dp, fsdp); None: one
-    process, no group), on this rank's rows; a checkpoint every step,
+    that step's global draws) on the grid `grid` ((dp, fsdp[, tp]); None:
+    one process, no group), on this rank's rows; a checkpoint every step,
     gathered whole and written by rank 0, is read back. -> {"metrics"
     (a list, one a step), "ckpt" (rank 0; None elsewhere), "saved",
     "resolved"}: one process also marks each gradient's resolved elements,
-    those 0 or above 1e-3 of their tensor's largest in every step."""
+    those 0 or above 1e-3 of their tensor's largest in every step. Under tp
+    (fsdp 1) also "shapes" (each param's shape on this rank) and "grads",
+    the first step's gradients of the params whole on every tp rank."""
     from minddiffusion_tpu_torch.io.checkpoints import CheckpointManager
     from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
     from minddiffusion_tpu_torch.parallel.mesh import rank
@@ -156,6 +163,11 @@ def sd_train(cfg: dict, weights: str, data: str, grid, ckpt_dir: str) -> dict:
     steps = len(blob["draws"])
     resolved = {}
     loss_and_grads = make_loss_and_grads(config)
+    extra = {}
+    if state.tp is not None and grid[1] == 1:
+        extra["shapes"] = {n: tuple(p.shape) for n, p in state.grad_params.items()}
+        extra["grads"] = _tp_grads(loss_and_grads(state, batch, None, blob["draws"][0])[1],
+                                   state.tp)
 
     def step_fn(s, b, seed):
         draws = blob["draws"][s.step]
@@ -170,17 +182,18 @@ def sd_train(cfg: dict, weights: str, data: str, grid, ckpt_dir: str) -> dict:
             max_steps=steps).fit(state, epochs=steps)
     ckpt = manager.restore_latest() if rank() == 0 else None
     return {"metrics": record.steps, "ckpt": ckpt, "saved": manager.steps(),
-            "resolved": resolved}
+            "resolved": resolved, **extra}
 
 
 def glide_train(cfg: dict, weights: str, data: str, grid) -> dict:
     """One GLIDE step (cli/glide_train.build_step) on the grid `grid` (None:
     one process, which also returns the step's gradient) with the global
     noise in `data`. -> {"metrics", "params", "ema"[, "grads"]}, gathered
-    whole on rank 0."""
+    whole on rank 0; under tp every rank's "grads" are the gradients of
+    the params whole on every tp rank."""
     from minddiffusion_tpu_torch.cli import glide_train as gt
     from minddiffusion_tpu_torch.models.glide import GlideUNetConfig, XfConfig
-    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh, shard_batch
+    from minddiffusion_tpu_torch.parallel import MeshConfig, batch_sharding, make_mesh, shard_batch
     from minddiffusion_tpu_torch.parallel.collectives import full_state
 
     model = gt.build_model(cfg["super_res"], GlideUNetConfig(**cfg["unet"]),
@@ -193,12 +206,13 @@ def glide_train(cfg: dict, weights: str, data: str, grid) -> dict:
     step = gt.build_step(schedule, cfg["super_res"], 0.9)
     batch = blob["batch"] if mesh is None else shard_batch(blob["batch"], mesh)
     extra = {}
-    if mesh is None:
-        extra["grads"] = gt.loss_and_grads(state, schedule, cfg["super_res"], batch,
-                                           blob["noise"])[1]
+    if mesh is None or state.tp is not None:
+        noise = blob["noise"] if mesh is None else batch_sharding(mesh).take(blob["noise"])
+        grads = gt.loss_and_grads(state, schedule, cfg["super_res"], batch, noise)[1]
+        extra["grads"] = grads if mesh is None else _tp_grads(grads, state.tp)
     metrics = {k: v.item() for k, v in step(state, batch, 0, noise=blob["noise"]).items()}
     tree = {"params": state.models.state_dict(), "ema": state.ema}
-    return {"metrics": metrics, **(full_state(tree) or {}), **extra}
+    return {"metrics": metrics, **(full_state(tree, state.tp) or {}), **extra}
 
 
 def run_cli(module: str, argv: list, assets: str = None):
@@ -215,7 +229,7 @@ def run_cli(module: str, argv: list, assets: str = None):
     params = state.models.state_dict()
     own = None if any(is_dtensor(v) for v in params.values()) else \
         {k: v.detach().clone() for k, v in params.items()}
-    return state.step, full_state(params), own
+    return state.step, full_state(params, state.tp), own
 
 
 def txt2img(cfg: dict, weights: str, data: str, grid) -> torch.Tensor:
@@ -229,3 +243,51 @@ def txt2img(cfg: dict, weights: str, data: str, grid) -> torch.Tensor:
     mesh = None if grid is None else make_mesh(MeshConfig(*grid), "cpu")
     fn = StableDiffusionPipeline(models).build_txt2img(mesh=mesh, **cfg["txt2img"])
     return fn(models, blob["tokens"], blob["uncond"], None, noise=blob["noise"])
+
+
+def tp_attention(sites, grid, device: str = "cuda:0") -> dict:
+    """SD CrossAttention self-attention in bf16 on `device`, one module a
+    site (C, heads, N) of `sites` (64 channels a head, batch 2, seeded
+    weights and inputs), on the grid `grid` (None: one process): -> {site:
+    the output, x's gradient, every param's gradient (tp pieces joined),
+    K1's launches by (B, N, heads)}."""
+    from minddiffusion_tpu_torch.models.attention import CrossAttention
+    from minddiffusion_tpu_torch.ops import flash_attention as fa
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh
+    from minddiffusion_tpu_torch.parallel.collectives import whole
+    from minddiffusion_tpu_torch.parallel.mesh import shard_params
+
+    if device != "cpu":
+        torch.cuda.set_device(device)
+    mesh = None if grid is None else make_mesh(MeshConfig(*grid), torch.device(device).type)
+    kernel = fa.flash_attention_packed
+    out = {}
+    for c, heads, n in sites:
+        g = torch.Generator().manual_seed(c + heads)
+        module = CrossAttention(c, heads, c // heads)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * c ** -0.5)
+        module.to(device)
+        x = torch.randn(2, n, c, generator=g).to(device, torch.bfloat16).requires_grad_()
+        w = torch.randn(2, n, c, generator=g).to(device)
+        tp = None if mesh is None else shard_params({"attn": module}, mesh, {"attn": ""})
+        hist = {}
+
+        def recording(q, k, v, h, *a, **kw):
+            hist[(q.shape[0], q.shape[1], h)] = hist.get((q.shape[0], q.shape[1], h), 0) + 1
+            return kernel(q, k, v, h, *a, **kw)
+
+        recording.launches = kernel.launches     # the wrapper counts under its module name
+        fa.flash_attention_packed = recording
+        try:
+            y = module(x)
+            (y.float() * w).sum().backward()
+        finally:
+            fa.flash_attention_packed = kernel
+            kernel.launches = recording.launches
+        out[(c, heads, n)] = dict(
+            y=y.detach().float().cpu(), dx=x.grad.float().cpu(), k1=hist,
+            grads={name: whole(p.grad, name, tp).float().cpu()
+                   for name, p in module.named_parameters()})
+    return out
