@@ -27,6 +27,8 @@ Phases (one line each; any failure raises and exits non-zero):
      launches by shape held against phase 3's list; then one with
      `cfg_fold` (x at B 8, the context at 16) vs the plain path on the
      duplicated batch, with K1's launches by batch (one at 8, nine at 16);
+     and the first eval again under MDT_WINO=0: no K2 or K3 launch, no
+     Winograd transform computed, eps within 2e-2 of the plain path;
   5. the main path: SD2 txt2img 512^2, DDIM-50, CFG 9.0, batch 8, bf16,
      seeded random weights, with kernel launch counts and the UNet prefix's
      batch (B: CFG-prefix dedup and the K/V hoist on, the defaults); then
@@ -143,10 +145,12 @@ Phases (one line each; any failure raises and exits non-zero):
      and K11 (K10a's function over its kernel) vs their plain versions at
      the SD2 UNet's ds1 / ds2 shapes and bench_attention.py's, a ragged Nq,
      Nk 77 and Nq + 128, C_out != C, K10d at C 1280 (its 64-row tier),
-     both softmax modes; beside SDPA's flash backend or the unfused chain,
-     and K1 at the same shape; CTAs (as the launchers report them) and
-     waves of each case, K10c's two launches (its projection GEMM, then
-     the attention) timed apart, the ones kernels' plan (rows, stages,
+     both softmax modes; beside SDPA as the dispatcher chooses it (the
+     backend named; forced onto flash beside it, `sdpa_flash_ms`), SDPA +
+     the output projection or the unfused chain, and K1 at the same
+     shape; CTAs (as the launchers report them) and waves of each case,
+     K10c's two launches (its projection GEMM, then the attention) timed
+     apart, the ones kernels' plan (rows, stages,
      head groups) and device ms (torch.profiler); then
      `scripts/ptxas_report.py attn_variants`, whose SASS must show wgmma
      and no mma.sync in the K10c / K10d kernels and the ones kernel, and
@@ -189,7 +193,15 @@ Phases (one line each; any failure raises and exits non-zero):
      minddiffusion_tpu_torch.cli.train --family sd2 --dp -1 --fsdp 1` (NCCL,
      world 1, 512^2, batch 2, 2 steps, a stand-in CLIP merges file): its
      backend, its loss, one checkpoint written by rank 0 and read back
-     by `build_sd`.
+     by `build_sd`; (c) on the two ranks, SD2 txt2img 512^2 with
+     `sampler="dpm_adaptive"`, CFG 9.0, batch 2 at dp 2 (a row a rank, the
+     solver's error norm the max over both ranks) against rank 0's
+     one-process solver on the batch with the networks run a row at a
+     time (a row's result on the card depends on its place in a batch):
+     the same bytes, the same UNet calls (NFE) on both ranks and in one
+     process, K1 10 and K2 21 an eval on each rank; the same bytes with
+     DDIM-10; the one-process call on the batch set beside them (its NFE,
+     its largest uint8 difference).
 Phases 2 and 6 also hold K1 and K4 at the SD1 head widths (D 40, 80, 160);
 phase 2 holds K1 at GLIDE's sites, whose 128 text keys precede the spatial
 ones (Nk = Nq + 128).
@@ -782,6 +794,7 @@ def phase4(gen: torch.Generator) -> None:
         f"rel_l2={rel_l2:.3e} eps_rms={eps_p.pow(2).mean().sqrt().item():.4f} "
         f"kernel_path_ms={ms:.3f} plain_path_ms={plain_ms:.3f}")
     assert rel_l2 <= REL_TOL, rel_l2
+    wino_off(unet, x, t, ctx, eps_p, ms)
 
     # CFG-prefix dedup: x at B 8 with the 2B context, against the plain path
     # on [x; x]. K1's launches by batch, by hand: the first self-attention
@@ -810,6 +823,42 @@ def phase4(gen: torch.Generator) -> None:
     assert fold_l2 <= REL_TOL, fold_l2
     del models, unet
     torch.cuda.empty_cache()
+
+
+def wino_off(unet, x, t, ctx, eps_p, ms: float) -> None:
+    """Phase 4's eval under MDT_WINO=0, in a hoisted scope of its own: every
+    3x3 conv on the non-Winograd route (`layers.conv3x3_dispatch`), so no
+    K2 or K3 launch and no Winograd transform U computed (each call of
+    `transform_weights` counted), K1's ten launches as before, eps within
+    REL_TOL relative L2 of the plain path's."""
+    from minddiffusion_tpu_torch.ops import winograd as wg
+
+    transform, made = wg.transform_weights, []
+
+    def counting(kernel):
+        made.append(tuple(kernel.shape))
+        return transform(kernel)
+
+    wg.transform_weights = counting
+    try:
+        with flag_env(MDT_WINO="0"), torch.inference_mode(), unet.hoisted_winograd():
+            reset_counts()
+            eps_w = unet(x, t, ctx)
+            counts = read_counts()
+            torch.cuda.synchronize()
+            off_ms = cuda_ms(lambda: unet(x, t, ctx), runs=5)
+    finally:
+        wg.transform_weights = transform
+    expected = dict(PER_UNET_EVAL, winograd=0)
+    assert torch.isfinite(eps_w).all() and eps_w.shape == eps_p.shape
+    rel_l2 = ((eps_w - eps_p).norm() / eps_p.norm()).item()
+    log(f"[phase 4] unet sd2 B={x.shape[0]} 64x64 under MDT_WINO=0: launches={counts} "
+        f"(K2 {counts['winograd']}, K3 {counts['winograd_gathered']}, K1 "
+        f"{counts['packed_attention']}), Winograd transforms computed {len(made)}, "
+        f"rel_l2_vs_plain={rel_l2:.3e} (bound {REL_TOL}) ms={off_ms:.3f} (with K2 {ms:.3f})")
+    assert counts == expected, (counts, expected)
+    assert not made, made
+    assert rel_l2 <= REL_TOL, rel_l2
 
 
 def phase5() -> "tuple[dict, float, torch.Tensor]":
@@ -2753,9 +2802,11 @@ def phase27(gen: torch.Generator, table: dict) -> None:
     """K10a-d and K11 against their plain versions at the SD2 UNet's ds1 and
     ds2 self-attention shapes and bench_attention.py's, with a ragged Nq,
     Nk 77 and Nk = Nq + 128, C_out != C, K10d at C 1280, both softmax
-    modes; beside SDPA (K10a, K10b, K11), the unfused chain (K10c: three
+    modes; beside SDPA as dispatched, its backend named, with the forced
+    flash time beside it (K10a, K10b, K11), the unfused chain (K10c: three
     input projections + SDPA + the output projection; K10d: SDPA + the
-    output projection) and K1 at the same shape where K1 takes it; then the
+    output projection, SDPA dispatched and forced onto flash) and K1 at the
+    same shape where K1 takes it; then the
     SASS check of the K10c / K10d kernels. No path of
     either package launches them."""
     from minddiffusion_tpu_torch.ops import attn_variants as av, flash_attention as fa
@@ -2771,7 +2822,7 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         return ctas, ctas / sms
 
     def run_case(name, label, b, nq, nk, c, exact, kernel_fn, plain_fn, library_fn,
-                 k1_fn, bnd, extra=None):
+                 k1_fn, bnd, extra=None, flash_fn=None, backend=None):
         ref = plain_fn()
         av.last_ctas.clear()
         got = kernel_fn()
@@ -2790,6 +2841,9 @@ def phase27(gen: torch.Generator, table: dict) -> None:
             extra["plan"] = lambda: av.ones_plan(b, nq, c, c // 64)
             extra["device_ms"] = lambda: device_ms(kernel_fn, "attn_ones_kernel")
         extra = {k: f() for k, f in extra.items()}
+        if flash_fn is not None:   # the library call with SDPA forced to flash
+            extra["sdpa_backend"] = backend
+            extra["sdpa_flash_ms"] = round(cuda_ms(flash_fn, runs=5), 4)
         log(f"[phase 27] {name} {label} B={b} Nq={nq} Nk={nk} C={c} exact={exact} "
             f"max_abs_err={abs_err:.3e} rel_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -2803,16 +2857,30 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                  bound_term=term, k1_ms=k1_ms, ctas=ctas, waves=waves, **extra))
 
-    def sdpa(q, k, v, heads, scale):
+    def sdpa(q, k, v, heads, scale, flash=False):
+        """SDPA on (B, H, N, 64) views, as the dispatcher chooses (a user's
+        call) or forced onto its flash backend (the earlier yardstick)."""
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
         views = [t.view(t.shape[0], -1, heads, 64).transpose(1, 2) for t in (q, k, v)]
 
         def call():
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            with (sdpa_kernel(SDPBackend.FLASH_ATTENTION) if flash
+                  else contextlib.nullcontext()):
                 o = F.scaled_dot_product_attention(*views, scale=scale)
             return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], -1)
         return call
+
+    def sdpa_backend(q, k, v, heads, scale) -> str:
+        """The backend the dispatcher takes for `sdpa`'s call."""
+        from torch.nn.attention import SDPBackend
+
+        views = [t.view(t.shape[0], -1, heads, 64).transpose(1, 2) for t in (q, k, v)]
+        try:
+            return SDPBackend(torch._fused_sdp_choice(*views, None, 0.0, False,
+                                                      scale=scale)).name.lower()
+        except (AttributeError, RuntimeError, TypeError, ValueError):
+            return "not named"
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
@@ -2820,7 +2888,8 @@ def phase27(gen: torch.Generator, table: dict) -> None:
     for label, b, nq, nk, c, exact, *c_out in (VARIANT_CASES + OUT_EXTRA_CASES):
         heads, scale = c // 64, 0.125
         q, k, v = (randn(b, n, c).to(torch.bfloat16) for n in (nq, nk, nk))
-        attn = sdpa(q, k, v, heads, scale)
+        attn, attn_flash = sdpa(q, k, v, heads, scale), sdpa(q, k, v, heads, scale, True)
+        lib = dict(flash_fn=attn_flash, backend=sdpa_backend(q, k, v, heads, scale))
         k1 = ((lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
               if fa.kernel_supports(q, k, heads) else None)
         att = variant_bound(b, nq, nk, c)
@@ -2830,7 +2899,7 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                 run_case(name, label, b, nq, nk, c, exact,
                          lambda fn=fn: fn(q, k, v, scale, heads, exact),
                          lambda: av.attn_ones_plain(q, k, av.augment_v(v, heads), scale,
-                                                    heads, exact), attn, k1, att)
+                                                    heads, exact), attn, k1, att, **lib)
         co = c_out[0] if c_out else c
         wo = (randn(c, co) * c ** -0.5).to(torch.bfloat16)
         bo = 0.1 * randn(co)
@@ -2840,7 +2909,9 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                  lambda: F.linear(attn(), wo.T, bo.to(torch.bfloat16)), k1,
                  variant_bound(b, nq, nk, c, 2.0 * b * nq * c * co,
                                2.0 * b * (nq * c + 2 * nk * c + nq * co) + 2.0 * c * co
-                               + 4.0 * co))
+                               + 4.0 * co),
+                 flash_fn=lambda: F.linear(attn_flash(), wo.T, bo.to(torch.bfloat16)),
+                 backend=lib["backend"])
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -2853,11 +2924,12 @@ def phase27(gen: torch.Generator, table: dict) -> None:
         wqs = (wq.float() * scale).to(torch.bfloat16)
         bo16 = bo.to(torch.bfloat16)
 
-        def chain():
+        def chain(flash=False):
             q, k, v = (torch.matmul(x, w) for w in (wqs, wk, wv))
-            return F.linear(sdpa(q, k, v, heads, 1.0)(), wo.T, bo16)
+            return F.linear(sdpa(q, k, v, heads, 1.0, flash)(), wo.T, bo16)
 
         y = av._proj_qkv(x, wq, wk, wv, scale)
+        backend = sdpa_backend(x, x, x, heads, 1.0)
         run_case("attn_proj", label, b, n, n, c, exact,
                  lambda: av.flash_attention_packed_proj(*args, exact=exact),
                  lambda: av.attn_proj_plain(*args, exact), chain, None,
@@ -2871,7 +2943,8 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                             lambda: av._proj_attend(y, wo, bo, heads, exact)), 4),
                         "gemm_ctas": lambda: av.last_ctas["mdt_qkv_proj"],
                         "gemm_bound_ms": lambda: round(bound(
-                            6.0 * b * n * c * c, 2.0 * b * n * c * 4 + 6.0 * c * c)[0], 4)})
+                            6.0 * b * n * c * c, 2.0 * b * n * c * 4 + 6.0 * c * c)[0], 4)},
+                 flash_fn=lambda: chain(True), backend=backend)
         del x, y
         torch.cuda.empty_cache()
 
@@ -2885,7 +2958,8 @@ def phase27(gen: torch.Generator, table: dict) -> None:
                  sdpa(q, k, v, heads, scale),
                  (lambda: fa.flash_attention_packed(q, k, v, heads, scale, exact))
                  if fa.kernel_supports(q, k, heads) else None,
-                 variant_bound(b, nq, nk, c))
+                 variant_bound(b, nq, nk, c), flash_fn=sdpa(q, k, v, heads, scale, True),
+                 backend=sdpa_backend(q, k, v, heads, scale))
         del q, k, v
         torch.cuda.empty_cache()
     hold_wgmma_sass("attn_variants", WGMMA_KERNELS, "phase 27", spills=CORE_KERNELS)
@@ -3275,7 +3349,9 @@ def grid_rank(rank: int, store: str, tmp: str) -> None:
     try:
         dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
                                 world_size=2)
-        result = ("ok", grid_work(rank, tmp))
+        result = grid_work(rank, tmp)
+        result["adaptive"] = grid_txt2img(rank)
+        result = ("ok", result)
         dist.barrier()
         dist.destroy_process_group()
     except Exception:
@@ -3405,6 +3481,150 @@ def grid_work(rank: int, tmp: str) -> dict:
     return result
 
 
+ADAPTIVE_SIZE = 512     # phase 31's dpm_adaptive txt2img: 512^2, batch 2, a row a rank
+
+
+def rowwise_txt2img(models, tokens, uncond, noise, sampler: str) -> "tuple[torch.Tensor, int]":
+    """The one-process txt2img of phase 31 (c) with every network run a row
+    at a time, at the shapes a dp rank of one row runs (CLIP on the row's
+    [uncond; cond], the guided UNet at CFG batch 2, the VAE decode at batch
+    1), and the sampler once on the whole batch: for `dpm_adaptive` the
+    solver's step control over both rows, as on one process. On the card a
+    row's result depends on its place in a batch (ROADMAP P10), so this,
+    not the call on the batch, is what a rank's bytes are held against.
+    -> (uint8 images, the solver's model evaluations)."""
+    from minddiffusion_tpu_torch.core import cfg as cfg_lib, latents
+    from minddiffusion_tpu_torch.pipelines import stable_diffusion as sd
+
+    rows = []
+    for i in range(tokens.shape[0]):
+        ctx2 = models.text_encoder(cfg_lib.fold(uncond[i:i + 1], tokens[i:i + 1]))
+        rows.append(sd._guided_unet(models.unet, ctx2, 9.0))
+    evals = []
+
+    def eps_fn(x, t):
+        evals.append(1)
+        return torch.cat([f(x[i:i + 1], t) for i, f in enumerate(rows)])
+
+    with models.unet.hoisted():
+        z = sd._run_sampler(sampler, eps_fn, noise.float(), models.schedule, 10, None)
+    images = [latents.unit_range_to_uint8(models.vae.decode(
+        latents.unscale_latents(z[i:i + 1], models.scale_factor))) for i in range(z.shape[0])]
+    return torch.cat(images).cpu(), len(evals)
+
+
+def grid_txt2img(rank: int) -> dict:
+    """Phase 31 (c) on one rank: SD2 txt2img at full width, 512^2,
+    `sampler="dpm_adaptive"`, CFG 9.0, batch 2, seeded random weights,
+    tokens and x_T, the sampling savings on. Rank 0 first makes the
+    one-process call on both rows and `rowwise_txt2img`; then both ranks
+    make the call at dp 2, a row each, the solver's error norm the max over
+    both ranks' rows at each iteration. Each call: the uint8 images (the
+    whole batch, gathered on every rank), the UNet calls (NFE), the
+    launches, the seconds. The same with DDIM-10 ("ddim_*"): the batch
+    split alone, with no step control to share."""
+    import torch.distributed as dist
+
+    from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
+
+    models = sd2_models(torch.Generator(device="cuda").manual_seed(21))
+    g = torch.Generator(device="cuda").manual_seed(22)
+    tokens = torch.randint(0, 49408, (2, 77), generator=g, device="cuda")
+    uncond = torch.zeros_like(tokens)
+    noise = torch.randn(2, ADAPTIVE_SIZE // 8, ADAPTIVE_SIZE // 8, 4, generator=g,
+                        device="cuda")
+    calls = []
+    hook = models.unet.register_forward_pre_hook(lambda m, args: calls.append(1))
+
+    def run(mesh, sampler: str) -> dict:
+        fn = StableDiffusionPipeline(models).build_txt2img(
+            height=ADAPTIVE_SIZE, width=ADAPTIVE_SIZE, num_steps=10, sampler=sampler,
+            guidance_scale=9.0, batch_size=2, mesh=mesh)
+        calls.clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        images = fn(models, tokens, uncond, None, noise=noise)
+        torch.cuda.synchronize()
+        return dict(images=images.cpu(), nfe=len(calls), s=time.time() - t0,
+                    counts={k: v for k, v in read_counts().items() if v})
+
+    out = {}
+    if rank == 0:
+        for sampler in ("dpm_adaptive", "ddim"):
+            out[f"{sampler}_one"] = run(None, sampler)
+            with torch.inference_mode():
+                out[f"{sampler}_rows"] = rowwise_txt2img(models, tokens, uncond, noise,
+                                                         sampler)
+        # each row sampled on its own: what a rank did without the shared
+        # step control (the parent commit)
+        alone = StableDiffusionPipeline(models).build_txt2img(
+            height=ADAPTIVE_SIZE, width=ADAPTIVE_SIZE, sampler="dpm_adaptive",
+            guidance_scale=9.0, batch_size=1)
+        out["apart"] = []
+        for i in range(2):
+            calls.clear()
+            images = alone(models, tokens[i:i + 1], uncond[i:i + 1], None,
+                           noise=noise[i:i + 1])
+            out["apart"].append((len(calls), images.cpu()))
+    dist.barrier()
+    mesh = make_mesh(MeshConfig(2, 1, 1), "cuda")
+    for sampler in ("dpm_adaptive", "ddim"):
+        out[f"{sampler}_grid"] = run(mesh, sampler)
+    hook.remove()
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_adaptive(ranks: list) -> dict:
+    """Phase 31 (c): each rank's images bytewise `rowwise_txt2img`'s, with
+    the adaptive solver after as many UNet calls, and with DDIM-10; K1 10
+    and K2 21 an eval and K1 1 for the decode on every rank and in the
+    one-process call on the batch, whose NFE and bytes are set beside
+    them. -> rank 0's launches (adaptive)."""
+    ref = ranks[0]["adaptive"]
+    one, (rows, nfe) = ref["dpm_adaptive_one"], ref["dpm_adaptive_rows"]
+    ddim_one, (ddim_rows, _) = ref["ddim_one"], ref["ddim_rows"]
+    grid = [r["adaptive"]["dpm_adaptive_grid"] for r in ranks]
+    ddim = [r["adaptive"]["ddim_grid"] for r in ranks]
+
+    def expected(n: int) -> dict:
+        return {"packed_attention": 10 * n + 1, "winograd": 21 * n}
+
+    def diff(a, b) -> int:
+        return (a.int() - b.int()).abs().max().item()
+
+    log(f"[phase 31] sd2 txt2img {ADAPTIVE_SIZE}x{ADAPTIVE_SIZE} dpm_adaptive CFG 9.0 batch 2 "
+        f"on 2 ranks of one card (dp 2, a row a rank, gloo over CUDA tensors): bytes equal "
+        f"to one process, networks a row at a time "
+        f"{[torch.equal(g['images'], rows) for g in grid]}; NFE a rank "
+        f"{[g['nfe'] for g in grid]}, one process {nfe}; launches a rank "
+        f"{[g['counts'] for g in grid]} (expected {expected(nfe)}); s a rank "
+        f"{[round(g['s'], 3) for g in grid]}. The one-process call on the batch: NFE "
+        f"{one['nfe']}, launches {one['counts']}, {one['s']:.3f} s, max uint8 difference "
+        f"from the ranks {[diff(g['images'], one['images']) for g in grid]} (row 0 "
+        f"{[diff(g['images'][:1], one['images'][:1]) for g in grid]}). DDIM-10 at dp 2: "
+        f"bytes equal to one process a row at a time "
+        f"{[torch.equal(g['images'], ddim_rows) for g in ddim]}, max uint8 difference from "
+        f"the call on the batch {[diff(g['images'], ddim_one['images']) for g in ddim]}, s a "
+        f"rank {[round(g['s'], 3) for g in ddim]}, one process {ddim_one['s']:.3f}. Each "
+        f"row sampled on its own (a rank without the shared step control): NFE "
+        f"{[n for n, _ in ref['apart']]}, bytes equal to the joint rows "
+        f"{[torch.equal(img, rows[i:i + 1]) for i, (_, img) in enumerate(ref['apart'])]}")
+    assert rows.shape == (2, ADAPTIVE_SIZE, ADAPTIVE_SIZE, 3) and rows.dtype == torch.uint8
+    assert 0 < nfe < 1000 and not torch.equal(rows[0], rows[1])
+    assert one["counts"] == expected(one["nfe"]), (one["counts"], one["nfe"])
+    for r, g in enumerate(grid):
+        assert g["nfe"] == nfe, (r, g["nfe"], nfe)
+        assert g["counts"] == expected(nfe), (r, g["counts"], expected(nfe))
+        assert torch.equal(g["images"], rows), (r, diff(g["images"], rows))
+        assert torch.equal(ddim[r]["images"], ddim_rows), \
+            (r, diff(ddim[r]["images"], ddim_rows))
+    return {k: grid[0]["counts"].get(k, 0) for k in KERNELS}
+
+
 def bpe_merges(path: str) -> None:
     """A stand-in CLIP merges file (the CLIP vocab is not in the
     repository): the header line and a few merges, enough for the BPE
@@ -3427,7 +3647,10 @@ def phase31(tmp: str) -> dict:
     `python -m torch.distributed.run --nproc_per_node 1 -m
     minddiffusion_tpu_torch.cli.train` at full width (NCCL, world 1),
     --dp -1 --fsdp 1, 2 steps: its backend, its loss, one checkpoint from
-    rank 0 that `build_sd` reads back."""
+    rank 0 that `build_sd` reads back. (c) After (a), on the same two
+    ranks: SD2 txt2img with the adaptive DPM solver and with DDIM-10 at dp
+    2 against rank 0's one-process calls (`grid_txt2img`,
+    `rowwise_txt2img`, `hold_adaptive`)."""
     import multiprocessing
     import pickle
 
@@ -3491,6 +3714,7 @@ def phase31(tmp: str) -> dict:
         assert rel <= GRID_UPDATE_TOL, (name, rel)
         by_path[f"sd2_finetune_512_b{GRID_BATCH}_{name}_rank0"] = {
             k: ranks[0][name]["counts"].get(k, 0) for k in KERNELS}
+    by_path[f"sd2_txt2img_{ADAPTIVE_SIZE}_dpm_adaptive_b2_dp2_rank0"] = hold_adaptive(ranks)
     path = os.path.join(tmp, "tp2_ckpt.pt")
     t1 = time.time()
     back = common.build_sd("sd2", "bf16", torch.device("cuda"), ckpt_path=path,

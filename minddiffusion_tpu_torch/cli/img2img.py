@@ -15,6 +15,7 @@ import torch
 from PIL import Image
 
 from minddiffusion_tpu_torch.cli import common
+from minddiffusion_tpu_torch.core import latents
 from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
 
@@ -55,8 +56,8 @@ def main(argv=None) -> list:
         strength=args.strength, guidance_scale=args.scale)
     img = Image.open(args.init_image).convert("RGB").resize(
         (args.W, args.H), Image.BICUBIC)
-    init = np.asarray(img, np.float32) / 127.5 - 1.0
-    init = torch.from_numpy(np.repeat(init[None], args.n_samples, 0))
+    init = latents.images_to_unit_range(torch.from_numpy(np.asarray(img)))
+    init = init[None].repeat(args.n_samples, 1, 1, 1)
     tokens = torch.as_tensor(tokenizer.tokenize([args.prompt] * args.n_samples))
     uncond = torch.as_tensor(tokenizer.tokenize([""] * args.n_samples))
     generator = torch.Generator(device=device).manual_seed(args.seed)

@@ -4,13 +4,17 @@ Port of minddiffusion_tpu/core/schedules.py: tables are computed once on the
 host in float64 numpy and stored as fp32 tensors (moved to the device by the
 samplers that read them).
 
-  * SD "linear": betas = linspace(sqrt(start), sqrt(end), T)**2;
+  * SD "linear": betas = linspace(sqrt(start), sqrt(end), T)**2, and
+    "quad", the same ramp under the name of the reference's configs;
   * GLIDE "linear_plain": linspace(1e-4, 2e-2, T) scaled by 1000/T, and
     "squaredcos_cap_v2": the cosine alpha-bar schedule, betas capped at
     0.999 (`betas_for_alpha_bar`);
   * `space_timesteps` (the "ddimN", "fast27" and comma-section grammar) and
     `respace_schedule`, whose betas reproduce the original alpha-bar at the
-    kept timesteps; `timestep_map` maps a spaced index to the original t.
+    kept timesteps; `timestep_map` maps a spaced index to the original t;
+  * `v_posterior`, the weight of beta in the posterior variance
+    (1 - v) * beta * (1 - ac_prev) / (1 - ac) + v * beta;
+  * the DDIM timestep subsets "uniform" and "quad" (`make_ddim_timesteps`).
 """
 from __future__ import annotations
 
@@ -26,10 +30,10 @@ def make_beta_schedule(n_timestep: int = 1000, linear_start: float = 1e-4,
                        linear_end: float = 2e-2, schedule: str = "linear",
                        cosine_s: float = 8e-3) -> np.ndarray:
     """Betas of a named schedule, float64 (n_timestep,): "linear" (SD
-    sqrt-space), "linear_plain" (GLIDE: linear in beta, scaled by
-    1000 / n_timestep; `linear_start`/`linear_end` are not read) or
-    "squaredcos_cap_v2"."""
-    if schedule == "linear":
+    sqrt-space) or its alias "quad", "linear_plain" (GLIDE: linear in beta,
+    scaled by 1000 / n_timestep; `linear_start`/`linear_end` are not read)
+    or "squaredcos_cap_v2"."""
+    if schedule in ("linear", "quad"):
         return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
                            dtype=np.float64) ** 2
     if schedule == "linear_plain":
@@ -77,14 +81,15 @@ class DiffusionSchedule:
     num_timesteps: int
 
     @classmethod
-    def from_betas(cls, betas: np.ndarray,
+    def from_betas(cls, betas: np.ndarray, v_posterior: float = 0.0,
                    timestep_map: Optional[np.ndarray] = None) -> "DiffusionSchedule":
         betas = np.asarray(betas, dtype=np.float64)
         n = int(betas.shape[0])
         alphas = 1.0 - betas
         ac = np.cumprod(alphas)
         ac_prev = np.append(1.0, ac[:-1])
-        pv = betas * (1.0 - ac_prev) / (1.0 - ac)
+        pv = ((1 - v_posterior) * betas * (1.0 - ac_prev) / (1.0 - ac)
+              + v_posterior * betas)
         # the t = 0 entry clipped to pv[1] (the GLIDE reference convention)
         plv = (np.log(np.append(pv[1], pv[1:])) if n > 1
                else np.log(np.maximum(pv, 1e-20)))
@@ -106,8 +111,12 @@ class DiffusionSchedule:
 
     @classmethod
     def create(cls, n_timestep: int = 1000, linear_start: float = 1e-4,
-               linear_end: float = 2e-2) -> "DiffusionSchedule":
-        return cls.from_betas(make_beta_schedule(n_timestep, linear_start, linear_end))
+               linear_end: float = 2e-2, schedule: str = "linear",
+               cosine_s: float = 8e-3, v_posterior: float = 0.0) -> "DiffusionSchedule":
+        """The JAX `create`'s keywords and defaults (positionally, the
+        port's order: `n_timestep` first, as `make_beta_schedule`)."""
+        betas = make_beta_schedule(n_timestep, linear_start, linear_end, schedule, cosine_s)
+        return cls.from_betas(betas, v_posterior=v_posterior)
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
@@ -127,18 +136,25 @@ class DiffusionSchedule:
                 + _take(self.posterior_mean_coef2, t, x_t) * x_t.float())
 
 
-def make_ddim_timesteps(num_ddim_timesteps: int,
-                        num_ddpm_timesteps: int = 1000) -> np.ndarray:
-    """The "uniform" DDIM timestep subset, int64 ascending, shifted by +1."""
+def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int = 1000,
+                        method: str = "uniform") -> np.ndarray:
+    """The DDIM timestep subset, int64 ascending, shifted by +1: "uniform"
+    (range(0, T, T // S) + 1) or "quad" (linspace(0, sqrt(0.8 T), S)^2,
+    truncated, + 1), the reference's `ddim_discretize`."""
     if not 1 <= num_ddim_timesteps <= num_ddpm_timesteps:
         raise ValueError(f"num_ddim_timesteps must be in [1, {num_ddpm_timesteps}],"
                          f" got {num_ddim_timesteps}")
-    c = num_ddpm_timesteps // num_ddim_timesteps
-    if c == 1:
-        # more than T/2 steps: an evenly spaced in-range subsequence
-        return np.linspace(0, num_ddpm_timesteps - 1,
-                           num_ddim_timesteps).round().astype(np.int64)
-    return np.arange(num_ddim_timesteps, dtype=np.int64) * c + 1
+    if method == "uniform":
+        c = num_ddpm_timesteps // num_ddim_timesteps
+        if c == 1:
+            # more than T/2 steps: an evenly spaced in-range subsequence
+            return np.linspace(0, num_ddpm_timesteps - 1,
+                               num_ddim_timesteps).round().astype(np.int64)
+        return np.arange(num_ddim_timesteps, dtype=np.int64) * c + 1
+    if method == "quad":
+        return (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps)
+                ** 2).astype(np.int64) + 1
+    raise ValueError(f"unknown ddim discretization: {method!r}")
 
 
 def ddim_sampling_parameters(alphas_cumprod, ddim_timesteps: np.ndarray,
@@ -189,7 +205,8 @@ def space_timesteps(num_timesteps: int,
 
 
 def respace_schedule(base_betas: np.ndarray,
-                     use_timesteps: Union[Set[int], Sequence[int]]) -> DiffusionSchedule:
+                     use_timesteps: Union[Set[int], Sequence[int]],
+                     v_posterior: float = 0.0) -> DiffusionSchedule:
     """The schedule over the kept original timesteps, with betas chosen so
     the respaced chain has the original alpha-bar at each of them."""
     alphas_cumprod = np.cumprod(1.0 - np.asarray(base_betas, dtype=np.float64))
@@ -198,5 +215,5 @@ def respace_schedule(base_betas: np.ndarray,
         new_betas.append(1.0 - alphas_cumprod[t] / last)
         last = alphas_cumprod[t]
         tmap.append(t)
-    return DiffusionSchedule.from_betas(np.array(new_betas),
+    return DiffusionSchedule.from_betas(np.array(new_betas), v_posterior=v_posterior,
                                         timestep_map=np.array(tmap, dtype=np.int64))

@@ -60,8 +60,11 @@ MAX_SIDE = 48
 def wino_route(h: int, w: int, c_in: int) -> bool:
     """Shape gate of the JAX package (`wino_wins`) without its TPU VMEM cap:
     H, W even, 12 <= min(H, W) <= MAX_SIDE (48), C_in >= MIN_C_IN (512);
-    MDT_WINO_TUNE hmax= / cmin= replace the 48 and the 512."""
+    MDT_WINO_TUNE hmax= / cmin= replace the 48 and the 512. False at every
+    shape under MDT_WINO=0."""
     f = flags()
+    if not f.wino:
+        return False
     h_max = f.wino_hmax if f.wino_hmax is not None else MAX_SIDE
     c_min = f.wino_cmin if f.wino_cmin is not None else MIN_C_IN
     return h % 2 == 0 and w % 2 == 0 and 12 <= min(h, w) <= h_max and c_in >= c_min

@@ -85,6 +85,15 @@ def init_random_glide_(module: nn.Module, generator: torch.Generator) -> None:
             draw(m.alpha, 0.02, 0.25)
 
 
+def create_glide_models(**kwargs) -> "GlideModels":
+    """`GlideModels.create` for `instantiate_from_config` YAML targets: a
+    `dtype` of "bf16" or "fp32" names the torch dtype. On the card unless
+    the params give another `device`."""
+    if isinstance(kwargs.get("dtype"), str):
+        kwargs["dtype"] = {"bf16": torch.bfloat16, "fp32": torch.float32}[kwargs["dtype"]]
+    return GlideModels.create(**kwargs)
+
+
 @dataclasses.dataclass
 class GlideModels:
     """The three networks of the cascade (with their weights) and the two

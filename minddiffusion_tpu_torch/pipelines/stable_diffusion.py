@@ -48,7 +48,7 @@ from minddiffusion_tpu_torch.models.layers import (
 from minddiffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from minddiffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from minddiffusion_tpu_torch.parallel.collectives import all_gather_rows
-from minddiffusion_tpu_torch.parallel.mesh import batch_sharding
+from minddiffusion_tpu_torch.parallel.mesh import Rows, batch_sharding
 from minddiffusion_tpu_torch.samplers import ddim, dpm_solver, plms
 from minddiffusion_tpu_torch.utils.flags import flags
 
@@ -95,6 +95,15 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             normal(p, 0.02)
 
 
+def create_sd_models(**kwargs) -> "SDModels":
+    """`SDModels.create` for `instantiate_from_config` YAML targets: a
+    `dtype` of "bf16" or "fp32" names the torch dtype. On the card unless
+    the params give another `device` ("cpu", "meta")."""
+    if isinstance(kwargs.get("dtype"), str):
+        kwargs["dtype"] = {"bf16": torch.bfloat16, "fp32": torch.float32}[kwargs["dtype"]]
+    return SDModels.create(**kwargs)
+
+
 @dataclasses.dataclass
 class SDModels:
     """The three SD networks (with their weights) and the noise schedule."""
@@ -124,7 +133,9 @@ class SDModels:
                vae_config: Optional[VAEConfig] = None,
                text_config: Optional[CLIPTextConfig] = None,
                param_dtype: Optional[torch.dtype] = None,
-               enable_lora: bool = False) -> "SDModels":
+               enable_lora: bool = False, lora_rank: int = 4, lora_alpha: float = 4.0,
+               timesteps: int = 1000, linear_start: float = 0.00085,
+               linear_end: float = 0.0120) -> "SDModels":
         """Build on `device`. With `generator` the weights are drawn by
         `init_random_`; without, they are zero until `load_state_dict`.
         `dtype` is the compute dtype; on a CUDA device it is bfloat16, the
@@ -132,15 +143,18 @@ class SDModels:
         `dtype` (norms in fp32, `cast_for_inference`); torch.float32 keeps
         fp32 master weights under `dtype` compute, the training form (the
         JAX package's dtype=bf16, param_dtype=fp32). `enable_lora` puts
-        rank-4 adapters on the preset UNet's attention projections."""
+        adapters of `lora_rank` and `lora_alpha` on the preset UNet's
+        attention projections. The schedule is SD's "linear" one over
+        `timesteps` from `linear_start` to `linear_end`."""
         if family not in FAMILIES:
             raise ValueError(f"unknown SD family {family!r}; ported: {list(FAMILIES)}")
         if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels take bfloat16, got {dtype}; "
                              "use bfloat16 on a CUDA device (fp32 runs on the CPU)")
         unet_preset, text_preset = FAMILIES[family]
-        unet_config = unet_config or unet_preset(attn_impl=attn_impl,
-                                                 enable_lora=enable_lora)
+        unet_config = unet_config or unet_preset(
+            attn_impl=attn_impl, enable_lora=enable_lora, lora_rank=lora_rank,
+            lora_alpha=lora_alpha)
         with torch.device("meta"):
             nets = dict(unet=UNetModel(unet_config),
                         vae=AutoencoderKL(vae_config or VAEConfig()),
@@ -157,7 +171,7 @@ class SDModels:
             else:
                 net.to(param_dtype).compute_dtype = dtype
                 nets[name] = net.eval()
-        schedule = DiffusionSchedule.create(1000, 0.00085, 0.0120)
+        schedule = DiffusionSchedule.create(timesteps, linear_start, linear_end)
         return cls(schedule=schedule, **nets)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
@@ -184,9 +198,12 @@ def _run_sampler(sampler: str, eps_fn, x_T: torch.Tensor, schedule: DiffusionSch
                  num_steps: int, generator: Optional[torch.Generator],
                  t_start_index: Optional[int] = None,
                  mask: Optional[torch.Tensor] = None,
-                 x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 x0: Optional[torch.Tensor] = None,
+                 rows: Rows = Rows()) -> torch.Tensor:
     """`mask` (1 = keep) and `x0` blend the known latent region into every
-    step (ddim, plms, dpm, dpm_singlestep; the noise from `generator`)."""
+    step (ddim, plms, dpm, dpm_singlestep; the noise from `generator`).
+    `rows`: where `x_T` is this rank's block of a batch split over data
+    ranks, the adaptive solver's step control spans the whole batch."""
     if t_start_index is not None and sampler != "ddim":
         # a mid-chain start (img2img strength < 1) exists for DDIM only; the
         # PLMS history and the DPM tables are built for full chains
@@ -206,8 +223,15 @@ def _run_sampler(sampler: str, eps_fn, x_T: torch.Tensor, schedule: DiffusionSch
         return dpm_solver.sample_singlestep(eps_fn, x_T, schedule, steps=num_steps,
                                             **blend)
     if sampler == "dpm_adaptive":
-        # the solver controls its own step size; num_steps is not used
-        return dpm_solver.sample_adaptive(eps_fn, x_T, schedule)
+        # the solver controls its own step size; num_steps is not used. On
+        # a grid its error norm spans the data ranks (a Rows group of None
+        # is the world)
+        group = None
+        if rows.count > 1:
+            import torch.distributed as dist
+
+            group = dist.group.WORLD if rows.group is None else rows.group
+        return dpm_solver.sample_adaptive(eps_fn, x_T, schedule, group=group)
     raise ValueError(f"unknown sampler {sampler!r}; ported: {list(SAMPLERS)}")
 
 
@@ -244,9 +268,12 @@ class StableDiffusionPipeline:
         1, as in JAX: no tp compute in inference; each tp rank of a data
         rank samples the same rows). Each rank is called with the whole
         batch, draws the whole x_T from `generator` and keeps its rows,
-        samples and decodes them, and every rank returns the whole batch
-        gathered back over its data ranks, the bytes of the one-process
-        call. (The JAX
+        samples and decodes them (`dpm_adaptive` takes its error norm over
+        the data ranks, so it steps as on the whole batch), and every rank
+        returns the whole batch gathered back over its data ranks: the
+        bytes of the one-process call on the CPU; on the card those of one
+        process that runs the networks a row block at a time, since there
+        a row's result depends on its place in a batch. (The JAX
         mesh variant switches to the interleaved CFG layout, a TPU-only
         rewrite not ported.)"""
         if sampler not in SAMPLERS:
@@ -273,7 +300,7 @@ class StableDiffusionPipeline:
                             if noise is None else _explicit("noise", noise, shape, dev))
             with models.unet.hoisted():
                 return _run_sampler(sampler, eps_fn, x_T, models.schedule,
-                                    num_steps, generator)
+                                    num_steps, generator, rows=rows)
 
         @torch.inference_mode()
         def fn(models: SDModels, tokens, uncond_tokens,

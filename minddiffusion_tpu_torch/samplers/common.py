@@ -11,6 +11,8 @@ from typing import Callable, Optional
 
 import torch
 
+from minddiffusion_tpu_torch.core import latents
+
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
@@ -47,6 +49,6 @@ def masked_blend_fn(mask: Optional[torch.Tensor], x0: Optional[torch.Tensor],
         noise = torch.randn(x0.shape, generator=generator, device=x0.device,
                             dtype=torch.float32)
         x0_noised = float(sqrt_ac[t]) * x0 + float(sqrt_1mac[t]) * noise
-        return x0_noised * mask + x * (1.0 - mask)
+        return latents.blend_masked(x, x0_noised, mask)
 
     return blend

@@ -303,7 +303,7 @@ def sample_adaptive(eps_fn: common.EpsFn, x_T: torch.Tensor,
                     schedule: DiffusionSchedule, order: int = 3, atol: float = 0.0078,
                     rtol: float = 0.05, h_init: float = 0.05, theta: float = 0.9,
                     t_err: float = 1e-5, max_nfe: int = 1000,
-                    prediction: str = "data") -> torch.Tensor:
+                    prediction: str = "data", group=None) -> torch.Tensor:
     """Adaptive step-size DPM-Solver with an embedded (order-1, order) pair
     and step doubling: accept when the sample-wise RMS of
     (x_high - x_low) / delta is <= 1, then
@@ -312,7 +312,14 @@ def sample_adaptive(eps_fn: common.EpsFn, x_T: torch.Tensor,
     The step size, lambda and time are fp32 host scalars (the schedule is
     interpolated in fp32, as the JAX solver does on device). The loop syncs
     with the host once per iteration: reading the error norm E, which
-    decides acceptance and the next step size."""
+    decides acceptance and the next step size.
+
+    E is the max over the whole batch of the rows' RMS, each row reduced on
+    its own. Where the batch is split over the ranks of a process `group`
+    (each rank passing its own rows), E is also taken as the max over the
+    group (one all-reduce an iteration), so every rank takes the steps, the
+    decisions and the model calls of the call on the whole batch; None (one
+    process) issues no collective."""
     if order not in (2, 3):
         raise NotImplementedError("adaptive order must be 2 or 3")
     if prediction not in ("data", "noise"):
@@ -396,7 +403,15 @@ def sample_adaptive(eps_fn: common.EpsFn, x_T: torch.Tensor,
         x_low, x_high = pair_update(x, t_s, t_t)
         delta = torch.clamp(rtol * torch.maximum(x_low.abs(), x_prev.abs()), min=atol)
         err = (x_high - x_low) / delta
-        e = f32(err.reshape(err.shape[0], -1).pow(2).mean(dim=-1).sqrt().max().item())
+        # each row's RMS by a reduction of its own: one over the whole batch
+        # would sum a row in another order at another batch size (on the card)
+        rows = err.reshape(err.shape[0], -1)
+        e = torch.stack([r.pow(2).mean().sqrt() for r in rows]).max()
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(e, op=dist.ReduceOp.MAX, group=group)
+        e = f32(e.item())
         if e <= one:                                  # the host sync of the step
             x, x_prev = x_high, x_low
             lam_s = marginals(t_t)[2]

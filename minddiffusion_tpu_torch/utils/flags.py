@@ -1,5 +1,9 @@
-"""The port's copy of four flags of minddiffusion_tpu/utils/flags.py.
+"""The port's copy of five flags of minddiffusion_tpu/utils/flags.py.
 
+    MDT_WINO=0          opt out of the Winograd conv kernels entirely: every
+                        3x3 conv takes the non-Winograd route (no K2 or K3
+                        launch, no Winograd transform U computed); any
+                        other value leaves them on
     MDT_CFG_DEDUP=0     opt out of CFG-prefix dedup: by default the SD
                         txt2img and img2img pipelines run the UNet prefix
                         (everything before the first cross-attention) once
@@ -47,11 +51,12 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
-_KEYS = ("MDT_WINO_TUNE", "MDT_GLIDE_TUNE", "MDT_CFG_DEDUP", "MDT_HOIST")
+_KEYS = ("MDT_WINO_TUNE", "MDT_GLIDE_TUNE", "MDT_CFG_DEDUP", "MDT_HOIST", "MDT_WINO")
 
 
 @dataclasses.dataclass(frozen=True)
 class Flags:
+    wino: bool = True
     wino_dma: bool = True
     wino_chain: bool = True
     wino_hmax: Optional[int] = None
@@ -128,6 +133,11 @@ def parse_cfg_dedup(raw: str) -> dict:
     return dict(cfg_dedup=raw != "0")
 
 
+def parse_wino(raw: str) -> dict:
+    """MDT_WINO -> field overrides: "0" opts out, anything else is on."""
+    return dict(wino=raw != "0")
+
+
 _cache: Tuple[Optional[tuple], Flags] = (None, Flags())
 
 
@@ -137,5 +147,6 @@ def flags() -> Flags:
     key = tuple(os.environ.get(k, "") for k in _KEYS)
     if _cache[0] != key:
         _cache = (key, Flags(**parse_wino_tune(key[0]), **parse_glide_tune(key[1]),
-                             **parse_cfg_dedup(key[2]), **parse_hoist(key[3])))
+                             **parse_cfg_dedup(key[2]), **parse_hoist(key[3]),
+                             **parse_wino(key[4])))
     return _cache[1]

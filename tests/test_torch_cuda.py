@@ -1099,6 +1099,54 @@ def test_sd_step_on_two_ranks_of_one_card(cuda, tmp_path, grid):
 
 
 @pytest.mark.cuda
+def test_adaptive_txt2img_on_two_ranks_of_one_card(cuda, tmp_path):
+    """build_txt2img(mesh=, sampler="dpm_adaptive") on one card (two
+    ranks, gloo over CUDA tensors, dp 2, a row a rank): a tiny SD2 at bf16,
+    64x64, batch 2; the solver's error norm is all-reduced (MAX) over the
+    ranks, so each rank makes the UNet calls of one process's solver on
+    the whole batch and returns its bytes, the networks run a row at a
+    time as on the ranks (`torch_dist.txt2img_rows`: on the card a row's
+    result depends on its place in a batch, ROADMAP P10)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dist as td
+
+    from minddiffusion_tpu_torch.models.clip import CLIPTextConfig
+    from minddiffusion_tpu_torch.models.unet import UNetConfig
+    from minddiffusion_tpu_torch.models.vae import VAEConfig
+    from minddiffusion_tpu_torch.pipelines.stable_diffusion import SDModels
+
+    unet = dict(model_channels=64, channel_mult=(1, 2), attention_resolutions=(1, 2),
+                num_res_blocks=1, context_dim=32, num_head_channels=8,
+                use_linear_in_transformer=True)
+    vae = dict(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
+    text = dict(width=32, layers=2, heads=4, use_quick_gelu=False)
+    g = torch.Generator().manual_seed(0)
+    models = SDModels.create(family="sd2", dtype=torch.float32, device="cpu", generator=g,
+                             unet_config=UNetConfig(**unet), vae_config=VAEConfig(**vae),
+                             text_config=CLIPTextConfig(**text))
+    torch.save(dict(models.state_dict()), tmp_path / "w.pt")
+    torch.save({"tokens": torch.randint(0, 49000, (2, 77), generator=g).int(),
+                "uncond": torch.zeros(2, 77, dtype=torch.int32),
+                "noise": torch.randn(2, 8, 8, 4, generator=g)}, tmp_path / "d.pt")
+    cfg = dict(family="sd2", unet=unet, vae=vae, text=text, device="cuda:0",
+               dtype=torch.bfloat16, count_calls=True,
+               txt2img=dict(height=64, width=64, sampler="dpm_adaptive",
+                            guidance_scale=9.0, batch_size=2))
+    args = (cfg, str(tmp_path / "w.pt"), str(tmp_path / "d.pt"))
+    one, calls = td.txt2img_rows(*args)
+    ranks = td.start_ranks([(td.txt2img, (*args, (2, 1, 1)))], 2, tmp_path,
+                           timeout=300).join()
+    assert one.shape == (2, 64, 64, 3) and one.dtype == torch.uint8 and calls > 6
+    for r in ranks:
+        images, n = r[0]
+        assert n == calls, (n, calls)
+        assert torch.equal(images, one)
+
+
+@pytest.mark.cuda
 def test_tp_attention_on_two_ranks_of_one_card(cuda):
     """SD CrossAttention at tp 2 on one card (two ranks, gloo over CUDA
     tensors), bf16: at (2, 1024, 10 x 64) K1 runs on each rank's 5 heads, at

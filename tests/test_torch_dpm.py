@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist as td
 import torch_parity as tp
 from minddiffusion_tpu.core.schedules import DiffusionSchedule as JaxSchedule
 from minddiffusion_tpu.pipelines.stable_diffusion import _make_eps_fn, _run_sampler
@@ -55,9 +56,9 @@ def schedules():
             DiffusionSchedule.create(1000, 0.00085, 0.0120))
 
 
-def check(got: torch.Tensor, ref) -> None:
+def check(got: torch.Tensor, ref, x_T: np.ndarray = X_T) -> None:
     ref = np.asarray(ref)
-    assert np.isfinite(ref).all() and np.abs(ref - X_T).max() > 0.1
+    assert np.isfinite(ref).all() and np.abs(ref - x_T).max() > 0.1
     np.testing.assert_allclose(got.numpy(), ref, atol=REL_TOL * np.abs(ref).max(), rtol=0)
 
 
@@ -99,6 +100,36 @@ def test_adaptive_matches_jax(schedules, kw):
     ref = jax_dpm.sample_adaptive(jax_eps, jnp.asarray(X_T), jsched, **kw)
     got = dpm_solver.sample_adaptive(port_eps, torch.from_numpy(X_T), psched, **kw)
     check(got, ref)
+
+
+# Four rows, the second half at three times the noise scale: on their own
+# the halves take other steps than the whole batch (24 model calls for
+# the whole batch and the first half, 21 for the second; up to 0.16 apart
+# in rows 2-3).
+X_GRID = np.random.default_rng(12).standard_normal((4, 6, 5, 4)).astype(np.float32)
+X_GRID[2:] *= 3.0
+
+
+def test_adaptive_over_two_data_ranks_steps_as_the_whole_batch(schedules, tmp_path):
+    """sample_adaptive with the batch split over two data ranks (gloo, a
+    dp 2 grid, tests/torch_dist.py): the error norm is the max over both
+    ranks' rows, so each rank's rows are bytewise the one-process call's
+    on the whole batch, within the file's tolerance of the JAX solver on
+    the whole batch, after the whole batch's model calls. The halves run
+    apart (no group) step otherwise, which the split must not."""
+    args = (X_GRID, W, B, C)
+    session = td.start_ranks([(td.adaptive, (*args, (2, 1, 1)))], 2, tmp_path, timeout=120)
+    one, nfe = td.adaptive(*args, None)
+    halves = [td.adaptive(X_GRID[i:i + 2], W, B, C, None) for i in (0, 2)]
+    ref = np.asarray(jax_dpm.sample_adaptive(jax_eps, jnp.asarray(X_GRID), schedules[0]))
+    ranks = [r[0] for r in session.join()]
+    assert [n for _, n in halves] != [nfe, nfe]
+    check(one, ref, X_GRID)
+    for r, (rows, n) in enumerate(ranks):
+        assert n == nfe, (r, n, nfe)
+        assert torch.equal(rows, one[2 * r:2 * r + 2]), r
+        np.testing.assert_allclose(rows.numpy(), ref[2 * r:2 * r + 2],
+                                   atol=REL_TOL * np.abs(ref).max(), rtol=0)
 
 
 @pytest.mark.parametrize("sampler", ["dpm", "dpm_singlestep", "dpm_adaptive"])

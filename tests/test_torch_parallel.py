@@ -543,7 +543,7 @@ def _cli_setup(tmp):
 
 
 TWO_RANKS = ("dp", "fsdp", "nan", "glide", "txt2img", "sd_cli", "glide_cli", "replicated",
-             "tp", "tp_nan", "glide_tp", "lora_tp")
+             "tp", "tp_nan", "glide_tp", "lora_tp", "txt2img_adaptive")
 FOUR_RANKS = ("fsdp_tp", "txt2img_tp")
 
 
@@ -559,6 +559,8 @@ def grid(tmp_path_factory):
         jax_sd = pool.submit(sd_jax)
         g_cfg = _glide_setup(tmp)
         t_cfg, t_jax = _txt2img_setup(tmp)
+        a_cfg = dict(t_cfg, txt2img=dict(t_cfg["txt2img"], sampler="dpm_adaptive"),
+                     count_calls=True)
         assets, sd_argv, glide_argv = _cli_setup(tmp)
         sd = (f"{tmp}/sd_w.pt", f"{tmp}/sd_d.pt")
         lora = (f"{tmp}/lora_w.pt", f"{tmp}/sd_d.pt")
@@ -575,7 +577,8 @@ def grid(tmp_path_factory):
                 (td.sd_train, (sd_cfg, *sd, (1, 1, 2), f"{tmp}/ck_tp")),
             (td.sd_train, (sd_cfg, sd[0], f"{tmp}/sd_nan.pt", (1, 1, 2), f"{tmp}/ck_tp_nan")),
                 (td.glide_train, (g_cfg, *glide, (1, 1, 2))),
-                (td.sd_train, (lora_cfg, *lora, (1, 1, 2), f"{tmp}/ck_lora_tp"))]
+                (td.sd_train, (lora_cfg, *lora, (1, 1, 2), f"{tmp}/ck_lora_tp")),
+                (td.txt2img, (a_cfg, *t2i, (2, 1, 1)))]
         session = td.start_ranks(jobs, 2, tmp, timeout=400)
         four = td.start_ranks([(td.sd_train, (sd_cfg, *sd, (1, 2, 2), f"{tmp}/ck_fsdp_tp")),
                                (td.txt2img, (t_cfg, *t2i, (2, 1, 2)))], 4, tmp, timeout=400)
@@ -584,7 +587,8 @@ def grid(tmp_path_factory):
             one=td.sd_train(sd_cfg, *sd, None, f"{tmp}/ck_one"),
             lora_one=td.sd_train(lora_cfg, *lora, None, f"{tmp}/ck_lora_one"),
             glide_one=td.glide_train(g_cfg, *glide, None),
-            txt2img_one=td.txt2img(t_cfg, *t2i, None))
+            txt2img_one=td.txt2img(t_cfg, *t2i, None),
+            txt2img_adaptive_one=td.txt2img(a_cfg, *t2i, None))
         out["jmetrics"], out["jparams"] = jax_sd.result()
     for names, ranks in ((TWO_RANKS, session.join()), (FOUR_RANKS, four.join())):
         out.update({k: [r[i] for r in ranks] for i, k in enumerate(names)})
@@ -755,6 +759,17 @@ def test_txt2img_over_two_ranks(grid):
     for r in grid["txt2img"]:
         assert torch.equal(r, one)
     assert np.abs(one.numpy().astype(np.int32) - grid["t_jax"].astype(np.int32)).max() <= 1
+
+
+def test_adaptive_txt2img_over_two_ranks(grid):
+    """build_txt2img(mesh=, sampler="dpm_adaptive") at dp 2: the solver's
+    error norm spans both ranks' rows, so each rank makes the one-process
+    call's UNet calls and returns its bytes."""
+    one, calls = grid["txt2img_adaptive_one"]
+    assert one.shape == (2, 64, 64, 3) and one.dtype == torch.uint8 and calls > 6
+    for images, n in grid["txt2img_adaptive"]:
+        assert n == calls
+        assert torch.equal(images, one)
 
 
 def test_txt2img_over_a_dp_tp_grid(grid):

@@ -232,17 +232,86 @@ def run_cli(module: str, argv: list, assets: str = None):
     return state.step, full_state(params, state.tp), own
 
 
+def adaptive(x_T, w, b, c, grid, **kw) -> tuple:
+    """dpm_solver.sample_adaptive over the SD schedule with the row-wise eps
+    tanh(x * w + b * sin(0.003 t + c)) (tests/test_torch_dpm.py's), on this
+    rank's rows of `x_T` (numpy) split over the data ranks of the grid
+    `grid` (None: one process, the whole batch, no group): -> (the rows
+    sampled, the model calls made)."""
+    import torch.distributed as dist
+
+    from minddiffusion_tpu_torch.core.schedules import DiffusionSchedule
+    from minddiffusion_tpu_torch.parallel import MeshConfig, batch_sharding, make_mesh
+    from minddiffusion_tpu_torch.samplers import dpm_solver
+
+    w, b, c = (torch.from_numpy(a) for a in (w, b, c))
+    calls = []
+
+    def eps(x, t):
+        calls.append(1)
+        return torch.tanh(x * w + b * torch.sin(t.float()[0] * 0.003 + c))
+
+    x, group = torch.from_numpy(x_T), None
+    if grid is not None:
+        rows = batch_sharding(make_mesh(MeshConfig(*grid), "cpu"))
+        x = rows.take(x)
+        group = dist.group.WORLD if rows.group is None else rows.group
+    out = dpm_solver.sample_adaptive(eps, x, DiffusionSchedule.create(1000, 0.00085, 0.0120),
+                                     group=group, **kw)
+    return out, len(calls)
+
+
 def txt2img(cfg: dict, weights: str, data: str, grid) -> torch.Tensor:
     """StableDiffusionPipeline.build_txt2img(mesh=) over the grid (None: one
-    process) on the request batch and explicit x_T in `data`."""
+    process) on the request batch and explicit x_T in `data`; with
+    `cfg["count_calls"]` -> (the images, the UNet calls this rank made)."""
     from minddiffusion_tpu_torch.parallel import MeshConfig, make_mesh
     from minddiffusion_tpu_torch.pipelines.stable_diffusion import StableDiffusionPipeline
 
     models = _sd_models(cfg, weights)
     blob = torch.load(data, weights_only=True)
-    mesh = None if grid is None else make_mesh(MeshConfig(*grid), "cpu")
+    mesh = None if grid is None else make_mesh(MeshConfig(*grid), models.device.type)
     fn = StableDiffusionPipeline(models).build_txt2img(mesh=mesh, **cfg["txt2img"])
-    return fn(models, blob["tokens"], blob["uncond"], None, noise=blob["noise"])
+    calls = []
+    hook = models.unet.register_forward_pre_hook(lambda m, args: calls.append(1))
+    images = fn(models, blob["tokens"], blob["uncond"], None, noise=blob["noise"]).cpu()
+    hook.remove()
+    return (images, len(calls)) if cfg.get("count_calls") else images
+
+
+def txt2img_rows(cfg: dict, weights: str, data: str):
+    """`txt2img`'s one-process call with every network run a row at a time
+    (CLIP on the row's [uncond; cond], the guided UNet at CFG batch 2, the
+    VAE decode at batch 1, the shapes a dp rank of one row runs) and the
+    sampler once on the whole batch (for dpm_adaptive, the step control of
+    both rows): -> (the images, the sampler's model evaluations). On the
+    card a row's result depends on its place in a batch, so a rank's bytes
+    are held against this there."""
+    from minddiffusion_tpu_torch.core import cfg as cfg_lib, latents
+    from minddiffusion_tpu_torch.pipelines import stable_diffusion as sd
+
+    models = _sd_models(cfg, weights)
+    dev = models.device
+    blob = torch.load(data, weights_only=True)
+    tokens, uncond = blob["tokens"].to(dev), blob["uncond"].to(dev)
+    run = cfg["txt2img"]
+    evals = []
+    with torch.inference_mode():
+        rows = [sd._guided_unet(models.unet, models.text_encoder(
+            cfg_lib.fold(uncond[i:i + 1], tokens[i:i + 1])), run["guidance_scale"])
+            for i in range(tokens.shape[0])]
+
+        def eps_fn(x, t):
+            evals.append(1)
+            return torch.cat([f(x[i:i + 1], t) for i, f in enumerate(rows)])
+
+        with models.unet.hoisted():
+            z = sd._run_sampler(run["sampler"], eps_fn, blob["noise"].float().to(dev),
+                                models.schedule, run.get("num_steps", 50), None)
+        images = torch.cat([latents.unit_range_to_uint8(models.vae.decode(
+            latents.unscale_latents(z[i:i + 1], models.scale_factor)))
+            for i in range(z.shape[0])])
+    return images.cpu(), len(evals)
 
 
 def tp_attention(sites, grid, device: str = "cuda:0") -> dict:
